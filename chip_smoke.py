@@ -1,0 +1,323 @@
+"""Drive the PyTorch/CUDA port on one NVIDIA GPU and check it end to end.
+
+    python3 chip_smoke.py
+
+Phases, each printing one JSON line; any failure raises and exits
+non-zero:
+  1. device: the card's name, and its name and power limit as nvidia-smi
+     reports them;
+  2. build: the probe kernel (csrc/probe_kernel.cu) built with nvcc for
+     sm_90a from the sources in this checkout;
+  3. kernel vs plain: ops/probe_kernel.resource_probe on the card against
+     its plain torch version, exact equality, at the main path's shapes
+     and on edge inputs, with CUDA-event times and the byte bound;
+  4. main path: the scheduler_perf density shape at the north-star size
+     (5,000 nodes of 4 CPU / 32Gi / 110 pods, 50,000 pause pods of
+     100m / 500Mi) through TorchScheduleAlgorithm on the card; every pod
+     placed, 10 per node, names equal to the same call on the CPU, and
+     the probe kernel launched;
+  5. mixed backlog: ~1,000 heterogeneous nodes and a backlog of RC
+     template runs, short runs and singletons, equal to the port's copy
+     of the serial oracle;
+  6. the kernels line, with the launch count of each path it drove;
+     then nvidia-smi's line, then the result line
+     {"ok": true, "device": {...}}.
+
+Exits non-zero, printing no result, when CUDA is not available or when
+the port's package is not beside this script.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+import torch
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+
+#: NVIDIA H100 SXM data sheet: HBM3 rate and the float64 rate of the
+#: CUDA cores (the probe's float64 BalancedAllocation math)
+HBM_BYTES_PER_S = 3.35e12
+F64_FLOP_PER_S = 34e12
+
+
+def emit(phase: str, **kw) -> None:
+    print(json.dumps({"phase": phase, **kw}), flush=True)
+
+
+def nvidia_smi_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+# -- phase 3: the kernel against its plain version ---------------------------
+
+
+def probe_inputs(S, N, seed, **opts):
+    """scenarios.probe_case placed on the card for one resource_probe
+    call."""
+    alloc, usage, pod = S.probe_case(N, seed, **opts)
+    def put(a):
+        return torch.tensor(a, dtype=torch.int64, device="cuda")
+
+    return (tuple(map(put, alloc)), tuple(map(put, usage)),
+            {k: put(v) for k, v in pod.items()})
+
+
+def cuda_ms(fn, reps=21, inner=10) -> float:
+    """Median over `reps` of the mean CUDA-event time of `inner` calls."""
+    for _ in range(3):
+        fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(inner):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / inner)
+    return statistics.median(times)
+
+
+def kernel_device_ms(fn, name, n=20):
+    """Mean device time of the kernel `name` over n calls of fn, from the
+    profiler's CUPTI trace; raises when the trace shows no device time
+    for it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    total_us, count = 0.0, 0
+    for ev in prof.key_averages():
+        if name in ev.key:
+            total_us += getattr(ev, "device_time_total", 0.0)
+            count += ev.count
+    if not (count and total_us):
+        raise RuntimeError(f"the profiler trace shows no device time for "
+                           f"{name}")
+    return total_us / count / 1e3
+
+
+def device_busy_ms(fn):
+    """-> (summed device time of every kernel and copy, in ms, or None
+    when the trace shows none; wall seconds) of one traced call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    # the device-side events (kernels, copies) carry the device time;
+    # host ops' totals would count it a second time
+    busy_us = sum(ev.self_device_time_total for ev in prof.key_averages()
+                  if ev.device_type == torch.autograd.DeviceType.CUDA)
+    return (busy_us / 1e3 if busy_us else None), wall
+
+
+def probe_bound_ms(J, N) -> tuple:
+    """Least time for the sweep: each input read once, each output written
+    once, over the HBM rate; the float64 ops (2 div, 2 sub, 1 mul per
+    (j, n)) over the float64 rate. -> (ms, "bytes" | "operations")."""
+    nbytes = 9 * 8 + 10 * N * 8 + N * 8 + J * N * 8
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = 5 * J * N / F64_FLOP_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def phase_kernel(PK, S):
+    terms = (("lr", 1), ("ba", 1))
+    results = {}
+    max_err = 0
+    for seed, (label, J, N, opts) in enumerate(S.PROBE_CASES):
+        opts = dict(opts)
+        wants_res = opts.pop("wants_res", True)
+        alloc, usage, pod = probe_inputs(S, N, seed, **opts)
+        fr_k, tab_k = PK.resource_probe(J, alloc, usage, pod, terms,
+                                        wants_res=wants_res)
+        fr_p, tab_p = PK.resource_probe_plain(J, alloc, usage, pod, terms,
+                                              wants_res=wants_res)
+        torch.cuda.synchronize()
+        err = max(int((fr_k - fr_p).abs().max()),
+                  int((tab_k - tab_p).abs().max()))
+        equal = bool(torch.equal(fr_k, fr_p) and torch.equal(tab_k, tab_p))
+        max_err = max(max_err, err)
+        pv = PK.pod_vector(pod)
+
+        def launch():
+            PK._launch(J, alloc, usage, pv, 1, 1, wants_res)
+
+        # ms: the kernel's device time (profiler); call_ms: the time of
+        # one launch through the wrapper back to back (CUDA events),
+        # which at these sizes is the host's launch rate
+        ms = kernel_device_ms(launch, "resource_probe_kernel")
+        call_ms = cuda_ms(launch)
+        plain_ms = cuda_ms(lambda: PK.resource_probe_plain(
+            J, alloc, usage, pod, terms, wants_res=wants_res))
+        bound_ms, bound_by = probe_bound_ms(J, N)
+        results.setdefault((J, N),
+                           (ms, call_ms, plain_ms, bound_ms, bound_by))
+        emit("kernel_vs_plain", case=label, J=J, N=N, equal=equal,
+             max_abs_err=err, ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+             bound_ms=bound_ms, bound_by=bound_by, library_call="none")
+        if not equal:
+            raise AssertionError(f"probe kernel != plain on {label}")
+    return results, max_err
+
+
+# -- phases 4 and 5: the scheduler -------------------------------------------
+
+
+def phase_main_path(PK, T, ClusterState, TorchScheduleAlgorithm, S):
+    n_nodes, n_pods = 5000, 50000
+    nodes = S.density_nodes(T, n_nodes)
+    pods = S.pause_pods(T, n_pods)
+    state = ClusterState.build(nodes)
+    # a first wave pays the first use of every torch CUDA kernel; the
+    # measured wave is the second, from the same state
+    t0 = time.perf_counter()
+    TorchScheduleAlgorithm(device="cuda").schedule_backlog(pods, state)
+    torch.cuda.synchronize()
+    cold_wall = time.perf_counter() - t0
+    algo = TorchScheduleAlgorithm(device="cuda")
+    PK.LAUNCHES = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    names = algo.schedule_backlog(pods, state)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = PK.LAUNCHES
+    tally = dict(algo._wave.dispatches)
+    if any(n is None for n in names):
+        raise AssertionError("main path left pods unplaced")
+    per_node = {}
+    for n in names:
+        per_node[n] = per_node.get(n, 0) + 1
+    if len(per_node) != n_nodes or set(per_node.values()) != {10}:
+        raise AssertionError("main path did not place 10 pods per node")
+    if launches <= 0:
+        raise AssertionError("main path never launched the probe kernel")
+    t1 = time.perf_counter()
+    cpu_names = TorchScheduleAlgorithm(device="cpu").schedule_backlog(
+        pods, state)
+    cpu_wall = time.perf_counter() - t1
+    if cpu_names != names:
+        raise AssertionError("card and CPU runs chose different nodes")
+    busy_ms, traced_wall = device_busy_ms(
+        lambda: TorchScheduleAlgorithm(device="cuda").schedule_backlog(
+            pods, state))
+    emit("main_path", nodes=n_nodes, pods=n_pods, wall_s=wall,
+         cold_wall_s=cold_wall, traced_wall_s=traced_wall,
+         device_busy_ms=busy_ms,
+         device_idle_share=(None if busy_ms is None
+                            else 1.0 - busy_ms / 1e3 / traced_wall),
+         pods_per_s=n_pods / wall, probes=tally.get("probe", 0),
+         scans=tally.get("scan", 0), scan_pods=tally.get("scan_pods", 0),
+         kernel_launches=launches, cpu_wall_s=cpu_wall,
+         equal_to_cpu=True, pods_per_node=10)
+    return launches
+
+
+def phase_mixed(PK, T, ClusterState, GenericScheduler,
+                TorchScheduleAlgorithm, S):
+    nodes, services = S.mixed_cluster(T, 1000)
+    pods = S.mixed_backlog(T, scale=2)
+    state = ClusterState.build(nodes, services=services)
+    algo = TorchScheduleAlgorithm(device="cuda")
+    PK.LAUNCHES = 0
+    t0 = time.perf_counter()
+    names = algo.schedule_backlog(pods, state)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = PK.LAUNCHES
+    if launches <= 0:
+        raise AssertionError("mixed backlog never launched the probe kernel")
+    t1 = time.perf_counter()
+    want = GenericScheduler().schedule_backlog(pods, state.clone())
+    oracle_wall = time.perf_counter() - t1
+    if names != want:
+        i = next(i for i, (a, b) in enumerate(zip(names, want)) if a != b)
+        raise AssertionError(
+            f"mixed backlog: pod {i} ({pods[i].metadata.name}) went to "
+            f"{names[i]}, the oracle chose {want[i]}")
+    tally = dict(algo._wave.dispatches)
+    emit("mixed_backlog", nodes=len(nodes), pods=len(pods), wall_s=wall,
+         oracle_s=oracle_wall, probes=tally.get("probe", 0),
+         scans=tally.get("scan", 0), scan_pods=tally.get("scan_pods", 0),
+         kernel_launches=launches, unscheduled=want.count(None),
+         equal_to_oracle=True)
+    return launches
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 1
+    from kubernetes_tpu_torch.api import types as T
+    from kubernetes_tpu_torch.harness import scenarios as S
+    from kubernetes_tpu_torch.models import replay
+    from kubernetes_tpu_torch.oracle import ClusterState, GenericScheduler
+    from kubernetes_tpu_torch.ops import probe_kernel as PK
+    from kubernetes_tpu_torch.scheduler.algorithm import (
+        TorchScheduleAlgorithm,
+    )
+
+    kind = torch.cuda.get_device_name(0)
+    smi = nvidia_smi_line()
+    emit("device", kind=kind, count=torch.cuda.device_count(),
+         nvidia_smi=smi, torch=torch.__version__,
+         cuda=torch.version.cuda)
+
+    t0 = time.perf_counter()
+    PK.build()
+    emit("build", kernel="resource_probe", seconds=time.perf_counter() - t0,
+         c_replay=replay._load_lib() is not None)
+
+    times, max_err = phase_kernel(PK, S)
+    launches = phase_main_path(PK, T, ClusterState, TorchScheduleAlgorithm, S)
+    mixed_launches = phase_mixed(PK, T, ClusterState, GenericScheduler,
+                                 TorchScheduleAlgorithm, S)
+
+    # the main path probes J=128 over the 5,000 nodes padded to 8,192
+    ms, call_ms, plain_ms, bound_ms, bound_by = times[(128, 8192)]
+    print(json.dumps({"kernels": [{
+        "name": "resource_probe",
+        "route": "cuda",
+        "source": "kubernetes_tpu_torch/csrc/probe_kernel.cu",
+        "replaces": "kubernetes_tpu/ops/pallas_probe.py:63",
+        "launches": launches,
+        "launches_by_path": {"density": launches, "mixed": mixed_launches},
+        "max_abs_err": max_err,
+        "matches_plain": True,
+        "ms": ms,
+        "call_ms": call_ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": None,
+    }]}), flush=True)
+    print(smi, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

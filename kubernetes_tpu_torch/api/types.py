@@ -1,0 +1,1529 @@
+"""Scheduling-relevant object schema.
+
+Reference surface: pkg/api/types.go (Pod :1527, PodSpec :1391, Node :2043,
+NodeStatus :1930, ResourceRequirements :922, Binding :2115), plus the
+v1.3-era alpha annotations through which affinity/taints/tolerations were
+expressed (pkg/api/helpers.go: GetAffinityFromPodAnnotations,
+GetTolerationsFromPodAnnotations, GetTaintsFromNodeAnnotations).
+
+Dataclasses only — no behavior beyond light helpers. The tensor program
+consumes the columnar encodings in `kubernetes_tpu.snapshot`, never these.
+
+Copy of kubernetes_tpu/api/types.py: only the import package differs.
+"""
+
+from __future__ import annotations
+
+import json
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional, Tuple
+
+from kubernetes_tpu_torch.api.resource import (
+    resource_list_cpu_milli,
+    resource_list_gpu,
+    resource_list_memory,
+)
+
+# Alpha annotation keys (pkg/api/types.go / plugin factory.go:51).
+AFFINITY_ANNOTATION = "scheduler.alpha.kubernetes.io/affinity"
+TOLERATIONS_ANNOTATION = "scheduler.alpha.kubernetes.io/tolerations"
+TAINTS_ANNOTATION = "scheduler.alpha.kubernetes.io/taints"
+SCHEDULER_NAME_ANNOTATION = "scheduler.alpha.kubernetes.io/name"
+
+DEFAULT_SCHEDULER_NAME = "default-scheduler"
+
+
+@dataclass
+class ObjectMeta:
+    name: str = ""
+    namespace: str = "default"
+    labels: Dict[str, str] = field(default_factory=dict)
+    annotations: Dict[str, str] = field(default_factory=dict)
+    uid: str = ""
+    # RFC3339 string when the object is pending deletion (selector-spread
+    # skips such pods, selector_spreading.go:146).
+    deletion_timestamp: Optional[str] = None
+    # Storage bookkeeping (pkg/api/types.go ObjectMeta): optimistic
+    # concurrency token assigned by the store on every write, and the
+    # creation instant. generate_name seeds server-side name generation.
+    resource_version: str = ""
+    creation_timestamp: Optional[str] = None
+    generate_name: str = ""
+    # spec-change sequence number (bumped by the apiserver on non-status
+    # updates of resources that carry one)
+    generation: int = 0
+
+    @property
+    def full_name(self) -> str:
+        return f"{self.namespace}/{self.name}"
+
+
+@dataclass
+class ContainerPort:
+    container_port: int = 0
+    host_port: int = 0
+    protocol: str = "TCP"
+    host_ip: str = ""
+
+
+@dataclass
+class Probe:
+    """pkg/api/types.go Probe (handler flattened: the kubelet's prober
+    seam interprets `handler` — "exec"/"http"/"tcp" — against the runtime)."""
+
+    handler: str = "exec"
+    initial_delay_seconds: int = 0
+    period_seconds: int = 10
+    failure_threshold: int = 3
+    success_threshold: int = 1
+    # ExecAction.Command (types.go): a real runtime runs this in the
+    # container and the exit code is the verdict; empty means the
+    # injected prober seam decides (hollow nodes)
+    exec_command: List[str] = field(default_factory=list)
+
+
+@dataclass
+class Container:
+    name: str = ""
+    image: str = ""
+    # requests maps resource name -> quantity string/int ("cpu": "100m").
+    requests: Dict[str, object] = field(default_factory=dict)
+    limits: Dict[str, object] = field(default_factory=dict)
+    ports: List[ContainerPort] = field(default_factory=list)
+    command: List[str] = field(default_factory=list)
+    liveness_probe: Optional["Probe"] = None
+    readiness_probe: Optional["Probe"] = None
+    # "" = the kubelet default (Always for :latest, IfNotPresent else);
+    # the AlwaysPullImages admission plugin forces "Always"
+    image_pull_policy: str = ""
+    security_context: Optional["SecurityContext"] = None
+
+
+@dataclass
+class SELinuxOptions:
+    user: str = ""
+    role: str = ""
+    type: str = ""
+    level: str = ""
+
+
+@dataclass
+class SecurityContext:
+    """Container-level security context (api/types.go SecurityContext —
+    the subset SecurityContextDeny polices)."""
+
+    privileged: Optional[bool] = None
+    run_as_user: Optional[int] = None
+    run_as_non_root: Optional[bool] = None
+    se_linux_options: Optional[SELinuxOptions] = None
+
+
+@dataclass
+class PodSecurityContext:
+    """Pod-level security context (api/types.go PodSecurityContext)."""
+
+    run_as_user: Optional[int] = None
+    run_as_non_root: Optional[bool] = None
+    se_linux_options: Optional[SELinuxOptions] = None
+    supplemental_groups: Optional[List[int]] = None
+    fs_group: Optional[int] = None
+
+
+# --- volume sources relevant to scheduling predicates -----------------------
+
+
+@dataclass
+class GCEPersistentDisk:
+    pd_name: str = ""
+    read_only: bool = False
+
+
+@dataclass
+class AWSElasticBlockStore:
+    volume_id: str = ""
+    read_only: bool = False
+
+
+@dataclass
+class RBDVolume:
+    monitors: Tuple[str, ...] = ()
+    image: str = ""
+    pool: str = ""
+    read_only: bool = False
+
+
+@dataclass
+class PersistentVolumeClaimSource:
+    claim_name: str = ""
+
+
+@dataclass
+class HostPathVolumeSource:
+    path: str = ""
+
+
+@dataclass
+class NFSVolumeSource:
+    server: str = ""
+    path: str = ""
+    read_only: bool = False
+
+
+@dataclass
+class ISCSIVolumeSource:
+    target_portal: str = ""
+    iqn: str = ""
+    lun: int = 0
+    read_only: bool = False
+
+
+@dataclass
+class GlusterfsVolumeSource:
+    endpoints_name: str = ""
+    path: str = ""
+    read_only: bool = False
+
+
+@dataclass
+class CephFSVolumeSource:
+    monitors: Tuple[str, ...] = ()
+    path: str = "/"
+    read_only: bool = False
+
+
+@dataclass
+class CinderVolumeSource:
+    volume_id: str = ""
+    read_only: bool = False
+
+
+@dataclass
+class FCVolumeSource:
+    target_wwns: Tuple[str, ...] = ()
+    lun: int = 0
+    read_only: bool = False
+
+
+@dataclass
+class AzureFileVolumeSource:
+    secret_name: str = ""
+    share_name: str = ""
+    read_only: bool = False
+
+
+@dataclass
+class FlockerVolumeSource:
+    dataset_name: str = ""
+
+
+@dataclass
+class VsphereVirtualDiskVolumeSource:
+    volume_path: str = ""
+    fs_type: str = ""
+
+
+@dataclass
+class SecretVolumeSource:
+    secret_name: str = ""
+
+
+@dataclass
+class ConfigMapVolumeSource:
+    name: str = ""
+
+
+@dataclass
+class DownwardAPIVolumeSource:
+    # [(file path, fieldRef field path)] — metadata projected as files
+    items: Tuple[Tuple[str, str], ...] = ()
+
+
+@dataclass
+class GitRepoVolumeSource:
+    repository: str = ""
+    revision: str = ""
+
+
+@dataclass
+class Volume:
+    name: str = ""
+    gce_persistent_disk: Optional[GCEPersistentDisk] = None
+    aws_elastic_block_store: Optional[AWSElasticBlockStore] = None
+    rbd: Optional[RBDVolume] = None
+    persistent_volume_claim: Optional[PersistentVolumeClaimSource] = None
+    host_path: Optional["HostPathVolumeSource"] = None
+    nfs: Optional[NFSVolumeSource] = None
+    iscsi: Optional[ISCSIVolumeSource] = None
+    glusterfs: Optional[GlusterfsVolumeSource] = None
+    cephfs: Optional[CephFSVolumeSource] = None
+    cinder: Optional[CinderVolumeSource] = None
+    fc: Optional[FCVolumeSource] = None
+    azure_file: Optional[AzureFileVolumeSource] = None
+    flocker: Optional[FlockerVolumeSource] = None
+    vsphere_volume: Optional[VsphereVirtualDiskVolumeSource] = None
+    secret: Optional[SecretVolumeSource] = None
+    config_map: Optional[ConfigMapVolumeSource] = None
+    downward_api: Optional[DownwardAPIVolumeSource] = None
+    git_repo: Optional[GitRepoVolumeSource] = None
+
+
+@dataclass
+class PersistentVolume:
+    metadata: ObjectMeta = field(default_factory=ObjectMeta)
+    gce_persistent_disk: Optional[GCEPersistentDisk] = None
+    aws_elastic_block_store: Optional[AWSElasticBlockStore] = None
+    nfs: Optional[NFSVolumeSource] = None
+    iscsi: Optional[ISCSIVolumeSource] = None
+    glusterfs: Optional[GlusterfsVolumeSource] = None
+    cephfs: Optional[CephFSVolumeSource] = None
+    cinder: Optional[CinderVolumeSource] = None
+    fc: Optional[FCVolumeSource] = None
+    azure_file: Optional[AzureFileVolumeSource] = None
+    flocker: Optional[FlockerVolumeSource] = None
+    vsphere_volume: Optional[VsphereVirtualDiskVolumeSource] = None
+    rbd: Optional[RBDVolume] = None
+    host_path: Optional[HostPathVolumeSource] = None
+    # spec.capacity ("storage" quantity) + spec.accessModes + claimRef
+    # ("namespace/name" of the bound claim), flattened
+    capacity: Dict[str, object] = field(default_factory=dict)
+    access_modes: Tuple[str, ...] = ()
+    claim_ref: str = ""
+
+
+@dataclass
+class PersistentVolumeClaim:
+    metadata: ObjectMeta = field(default_factory=ObjectMeta)
+    volume_name: str = ""  # bound PV name
+    requests: Dict[str, object] = field(default_factory=dict)
+    access_modes: Tuple[str, ...] = ()
+
+
+# --- affinity ---------------------------------------------------------------
+
+
+@dataclass
+class NodeSelectorRequirement:
+    key: str = ""
+    operator: str = "In"  # In NotIn Exists DoesNotExist Gt Lt
+    values: Tuple[str, ...] = ()
+
+
+@dataclass
+class NodeSelectorTerm:
+    match_expressions: Tuple[NodeSelectorRequirement, ...] = ()
+
+
+@dataclass
+class NodeSelector:
+    node_selector_terms: Tuple[NodeSelectorTerm, ...] = ()
+
+
+@dataclass
+class PreferredSchedulingTerm:
+    weight: int = 1
+    preference: NodeSelectorTerm = field(default_factory=NodeSelectorTerm)
+
+
+@dataclass
+class NodeAffinity:
+    required_during_scheduling_ignored_during_execution: Optional[NodeSelector] = None
+    preferred_during_scheduling_ignored_during_execution: Tuple[
+        PreferredSchedulingTerm, ...
+    ] = ()
+
+
+@dataclass
+class LabelSelectorRequirement:
+    key: str = ""
+    operator: str = "In"  # In NotIn Exists DoesNotExist
+    values: Tuple[str, ...] = ()
+
+
+@dataclass
+class LabelSelector:
+    match_labels: Dict[str, str] = field(default_factory=dict)
+    match_expressions: Tuple[LabelSelectorRequirement, ...] = ()
+
+
+@dataclass
+class PodAffinityTerm:
+    label_selector: Optional[LabelSelector] = None
+    # None (nil) == the pod's own namespace; () (empty list) == ALL
+    # namespaces (util/non_zero.go:96 GetNamespacesFromPodAffinityTerm).
+    namespaces: Optional[Tuple[str, ...]] = None
+    topology_key: str = ""
+
+
+@dataclass
+class WeightedPodAffinityTerm:
+    weight: int = 1
+    pod_affinity_term: PodAffinityTerm = field(default_factory=PodAffinityTerm)
+
+
+@dataclass
+class PodAffinity:
+    required_during_scheduling_ignored_during_execution: Tuple[PodAffinityTerm, ...] = ()
+    preferred_during_scheduling_ignored_during_execution: Tuple[
+        WeightedPodAffinityTerm, ...
+    ] = ()
+
+
+@dataclass
+class PodAntiAffinity:
+    required_during_scheduling_ignored_during_execution: Tuple[PodAffinityTerm, ...] = ()
+    preferred_during_scheduling_ignored_during_execution: Tuple[
+        WeightedPodAffinityTerm, ...
+    ] = ()
+
+
+@dataclass
+class Affinity:
+    node_affinity: Optional[NodeAffinity] = None
+    pod_affinity: Optional[PodAffinity] = None
+    pod_anti_affinity: Optional[PodAntiAffinity] = None
+
+
+@dataclass
+class Toleration:
+    key: str = ""
+    operator: str = "Equal"  # Equal | Exists
+    value: str = ""
+    effect: str = ""  # "", NoSchedule, PreferNoSchedule
+
+
+@dataclass
+class Taint:
+    key: str = ""
+    value: str = ""
+    effect: str = "NoSchedule"  # NoSchedule | PreferNoSchedule
+
+
+# --- pod / node -------------------------------------------------------------
+
+
+@dataclass
+class PodSpec:
+    containers: List[Container] = field(default_factory=list)
+    init_containers: List[Container] = field(default_factory=list)
+    node_selector: Dict[str, str] = field(default_factory=dict)
+    node_name: str = ""
+    volumes: List[Volume] = field(default_factory=list)
+    # Direct fields are preferred; the annotation forms (v1.3 alpha) are
+    # parsed by get_affinity/get_tolerations when the field is None.
+    affinity: Optional[Affinity] = None
+    tolerations: Optional[List[Toleration]] = None
+    restart_policy: str = "Always"  # Always | OnFailure | Never
+    termination_grace_period_seconds: Optional[int] = None
+    # stable network identity (petset/DNS)
+    hostname: str = ""
+    subdomain: str = ""
+    service_account_name: str = ""
+    security_context: Optional[PodSecurityContext] = None
+
+
+@dataclass
+class PodCondition:
+    type: str = "Ready"  # Ready | PodScheduled | Initialized
+    status: str = "True"  # True | False | Unknown
+    reason: str = ""
+    message: str = ""
+
+
+@dataclass
+class ContainerStatus:
+    name: str = ""
+    ready: bool = False
+    restart_count: int = 0
+    state: str = "waiting"  # waiting | running | terminated
+
+
+@dataclass
+class PodStatus:
+    phase: str = "Pending"  # Pending | Running | Succeeded | Failed | Unknown
+    conditions: List["PodCondition"] = field(default_factory=list)
+    host_ip: str = ""
+    pod_ip: str = ""
+    start_time: Optional[str] = None
+    reason: str = ""
+    message: str = ""
+    container_statuses: List["ContainerStatus"] = field(default_factory=list)
+
+
+@dataclass
+class Pod:
+    metadata: ObjectMeta = field(default_factory=ObjectMeta)
+    spec: PodSpec = field(default_factory=PodSpec)
+    status: PodStatus = field(default_factory=PodStatus)
+
+    @property
+    def name(self) -> str:
+        return self.metadata.name
+
+    @property
+    def namespace(self) -> str:
+        return self.metadata.namespace
+
+
+@dataclass
+class NodeCondition:
+    type: str = "Ready"  # Ready | OutOfDisk | MemoryPressure | ...
+    status: str = "True"  # True | False | Unknown
+    last_heartbeat_time: Optional[str] = None
+    last_transition_time: Optional[str] = None
+    reason: str = ""
+    message: str = ""
+
+
+@dataclass
+class NodeAddress:
+    type: str = "InternalIP"  # InternalIP | ExternalIP | Hostname
+    address: str = ""
+
+
+@dataclass
+class NodeStatus:
+    capacity: Dict[str, object] = field(default_factory=dict)
+    allocatable: Dict[str, object] = field(default_factory=dict)
+    conditions: List[NodeCondition] = field(default_factory=list)
+    images: List["ContainerImage"] = field(default_factory=list)
+    addresses: List["NodeAddress"] = field(default_factory=list)
+    phase: str = ""
+    # status.daemonEndpoints.kubeletEndpoint.Port flattened: where this
+    # node's kubelet API (logs/exec/stats) listens; 0 = not serving
+    kubelet_port: int = 0
+    # True when the node API serves TLS (the reference's :10250 is
+    # always https; here the scheme is explicit so clients dial right)
+    kubelet_https: bool = False
+    # attach/detach controller state (NodeStatus.VolumesAttached /
+    # VolumesInUse): devices the controller attached to this node and
+    # devices the kubelet reports mounted
+    volumes_attached: List["AttachedVolume"] = field(default_factory=list)
+    volumes_in_use: List[str] = field(default_factory=list)
+
+
+@dataclass
+class AttachedVolume:
+    name: str = ""  # the plugin device id (e.g. "gce-pd/disk-1")
+    device_path: str = ""
+
+
+@dataclass
+class ContainerImage:
+    names: Tuple[str, ...] = ()
+    size_bytes: int = 0
+
+
+@dataclass
+class NodeSpec:
+    unschedulable: bool = False
+    taints: Optional[List[Taint]] = None  # direct form; else annotation
+
+
+@dataclass
+class Node:
+    metadata: ObjectMeta = field(default_factory=ObjectMeta)
+    spec: NodeSpec = field(default_factory=NodeSpec)
+    status: NodeStatus = field(default_factory=NodeStatus)
+
+    @property
+    def name(self) -> str:
+        return self.metadata.name
+
+
+@dataclass
+class ServicePort:
+    name: str = ""
+    protocol: str = "TCP"
+    port: int = 0
+    # int targetPort or a named container port (intstr.IntOrString)
+    target_port: object = 0
+    node_port: int = 0
+
+
+@dataclass
+class ServiceSpec:
+    selector: Dict[str, str] = field(default_factory=dict)
+    ports: List["ServicePort"] = field(default_factory=list)
+    cluster_ip: str = ""
+    type: str = "ClusterIP"  # ClusterIP | NodePort | LoadBalancer
+    session_affinity: str = "None"  # None | ClientIP
+
+
+@dataclass
+class LoadBalancerIngress:
+    """types.go LoadBalancerIngress: one point the LB answers on."""
+
+    ip: str = ""
+    hostname: str = ""
+
+
+@dataclass
+class LoadBalancerStatus:
+    ingress: List["LoadBalancerIngress"] = field(default_factory=list)
+
+
+@dataclass
+class ServiceStatus:
+    load_balancer: LoadBalancerStatus = field(
+        default_factory=LoadBalancerStatus
+    )
+
+
+@dataclass
+class Service:
+    metadata: ObjectMeta = field(default_factory=ObjectMeta)
+    spec: ServiceSpec = field(default_factory=ServiceSpec)
+    status: ServiceStatus = field(default_factory=ServiceStatus)
+
+
+@dataclass
+class PodTemplateSpec:
+    metadata: ObjectMeta = field(default_factory=ObjectMeta)
+    spec: PodSpec = field(default_factory=PodSpec)
+
+
+@dataclass
+class ReplicationControllerSpec:
+    selector: Dict[str, str] = field(default_factory=dict)
+    replicas: int = 1
+    template: Optional[PodTemplateSpec] = None
+
+
+@dataclass
+class ReplicationControllerStatus:
+    replicas: int = 0
+    fully_labeled_replicas: int = 0
+    observed_generation: int = 0
+
+
+@dataclass
+class ReplicationController:
+    metadata: ObjectMeta = field(default_factory=ObjectMeta)
+    spec: ReplicationControllerSpec = field(default_factory=ReplicationControllerSpec)
+    status: ReplicationControllerStatus = field(
+        default_factory=ReplicationControllerStatus
+    )
+
+
+@dataclass
+class ReplicaSetSpec:
+    selector: Optional[LabelSelector] = None
+    replicas: int = 1
+    template: Optional[PodTemplateSpec] = None
+
+
+@dataclass
+class ReplicaSetStatus:
+    replicas: int = 0
+    observed_generation: int = 0
+
+
+@dataclass
+class ReplicaSet:
+    metadata: ObjectMeta = field(default_factory=ObjectMeta)
+    spec: ReplicaSetSpec = field(default_factory=ReplicaSetSpec)
+    status: ReplicaSetStatus = field(default_factory=ReplicaSetStatus)
+
+
+@dataclass
+class Binding:
+    """The object POSTed to pods/<name>/binding (pkg/api/types.go:2115)."""
+
+    pod_namespace: str
+    pod_name: str
+    target_node: str
+
+
+# --- control-plane kinds beyond the scheduler's own needs -------------------
+
+
+@dataclass
+class NamespaceSpec:
+    # the "kubernetes" finalizer is stamped at create time by the registry
+    # strategy (registry/namespace/strategy.go PrepareForCreate), NOT as a
+    # type default — an empty list must round-trip as empty
+    finalizers: List[str] = field(default_factory=list)
+
+
+@dataclass
+class NamespaceStatus:
+    phase: str = "Active"  # Active | Terminating
+
+
+@dataclass
+class Namespace:
+    metadata: ObjectMeta = field(default_factory=ObjectMeta)
+    spec: NamespaceSpec = field(default_factory=NamespaceSpec)
+    status: NamespaceStatus = field(default_factory=NamespaceStatus)
+
+
+@dataclass
+class EndpointAddress:
+    ip: str = ""
+    target_ref: str = ""  # "namespace/pod-name"
+
+
+@dataclass
+class EndpointPort:
+    name: str = ""
+    port: int = 0
+    protocol: str = "TCP"
+
+
+@dataclass
+class EndpointSubset:
+    addresses: List[EndpointAddress] = field(default_factory=list)
+    not_ready_addresses: List[EndpointAddress] = field(default_factory=list)
+    ports: List[EndpointPort] = field(default_factory=list)
+
+
+@dataclass
+class Endpoints:
+    metadata: ObjectMeta = field(default_factory=ObjectMeta)
+    subsets: List[EndpointSubset] = field(default_factory=list)
+
+
+@dataclass
+class ObjectReference:
+    kind: str = ""
+    namespace: str = ""
+    name: str = ""
+    uid: str = ""
+
+
+@dataclass
+class Event:
+    """An observability record (pkg/api/types.go Event); produced by the
+    recorder/broadcaster pipeline in kubernetes_tpu.client.record."""
+
+    metadata: ObjectMeta = field(default_factory=ObjectMeta)
+    involved_object: ObjectReference = field(default_factory=ObjectReference)
+    reason: str = ""
+    message: str = ""
+    source_component: str = ""
+    first_timestamp: Optional[str] = None
+    last_timestamp: Optional[str] = None
+    count: int = 1
+    type: str = "Normal"  # Normal | Warning
+
+
+@dataclass
+class JobSpec:
+    parallelism: int = 1
+    # None == "any pod succeeding completes the job" (job/types.go)
+    completions: Optional[int] = 1
+    selector: Optional[LabelSelector] = None
+    template: Optional[PodTemplateSpec] = None
+
+
+@dataclass
+class JobStatus:
+    active: int = 0
+    succeeded: int = 0
+    failed: int = 0
+    conditions: List[str] = field(default_factory=list)  # e.g. ["Complete"]
+
+
+@dataclass
+class Job:
+    metadata: ObjectMeta = field(default_factory=ObjectMeta)
+    spec: JobSpec = field(default_factory=JobSpec)
+    status: JobStatus = field(default_factory=JobStatus)
+
+
+# --- ScheduledJob (batch/types.go:185-247, the CronJob ancestor) ------------
+
+
+@dataclass
+class JobTemplateSpec:
+    metadata: ObjectMeta = field(default_factory=ObjectMeta)
+    spec: JobSpec = field(default_factory=JobSpec)
+
+
+@dataclass
+class ScheduledJobSpec:
+    """batch/types.go:198 ScheduledJobSpec."""
+
+    schedule: str = ""  # cron format
+    starting_deadline_seconds: Optional[int] = None
+    # Allow | Forbid | Replace (batch/types.go:223 ConcurrencyPolicy)
+    concurrency_policy: str = "Allow"
+    suspend: bool = False
+    job_template: JobTemplateSpec = field(default_factory=JobTemplateSpec)
+
+
+@dataclass
+class ScheduledJobStatus:
+    """batch/types.go:249 ScheduledJobStatus."""
+
+    active: List[str] = field(default_factory=list)  # "ns/job-name" refs
+    last_schedule_time: str = ""
+
+
+@dataclass
+class ScheduledJob:
+    metadata: ObjectMeta = field(default_factory=ObjectMeta)
+    spec: ScheduledJobSpec = field(default_factory=ScheduledJobSpec)
+    status: ScheduledJobStatus = field(default_factory=ScheduledJobStatus)
+
+
+@dataclass
+class DeploymentSpec:
+    replicas: int = 1
+    selector: Optional[LabelSelector] = None
+    template: Optional[PodTemplateSpec] = None
+    strategy: str = "RollingUpdate"  # RollingUpdate | Recreate
+    max_unavailable: int = 1
+    max_surge: int = 1
+
+
+@dataclass
+class DeploymentStatus:
+    observed_generation: int = 0
+    replicas: int = 0
+    updated_replicas: int = 0
+    available_replicas: int = 0
+
+
+@dataclass
+class Deployment:
+    metadata: ObjectMeta = field(default_factory=ObjectMeta)
+    spec: DeploymentSpec = field(default_factory=DeploymentSpec)
+    status: DeploymentStatus = field(default_factory=DeploymentStatus)
+
+
+@dataclass
+class DaemonSetSpec:
+    selector: Optional[LabelSelector] = None
+    template: Optional[PodTemplateSpec] = None
+
+
+@dataclass
+class DaemonSetStatus:
+    current_number_scheduled: int = 0
+    desired_number_scheduled: int = 0
+    number_misscheduled: int = 0
+
+
+@dataclass
+class DaemonSet:
+    metadata: ObjectMeta = field(default_factory=ObjectMeta)
+    spec: DaemonSetSpec = field(default_factory=DaemonSetSpec)
+    status: DaemonSetStatus = field(default_factory=DaemonSetStatus)
+
+
+@dataclass
+class HorizontalPodAutoscalerSpec:
+    """pkg/apis/autoscaling/types.go HorizontalPodAutoscalerSpec."""
+
+    # scaleRef: the workload to scale ("ReplicationController" |
+    # "Deployment" | "ReplicaSet") + name, same namespace
+    scale_target_kind: str = "ReplicationController"
+    scale_target_name: str = ""
+    min_replicas: int = 1
+    max_replicas: int = 1
+    target_cpu_utilization_percentage: Optional[int] = None
+
+
+@dataclass
+class HorizontalPodAutoscalerStatus:
+    observed_generation: int = 0
+    current_replicas: int = 0
+    desired_replicas: int = 0
+    current_cpu_utilization_percentage: Optional[int] = None
+    last_scale_time: Optional[str] = None
+
+
+@dataclass
+class HorizontalPodAutoscaler:
+    metadata: ObjectMeta = field(default_factory=ObjectMeta)
+    spec: HorizontalPodAutoscalerSpec = field(
+        default_factory=HorizontalPodAutoscalerSpec
+    )
+    status: HorizontalPodAutoscalerStatus = field(
+        default_factory=HorizontalPodAutoscalerStatus
+    )
+
+
+@dataclass
+class ResourceQuotaSpec:
+    """pkg/api/types.go ResourceQuotaSpec: hard limits keyed by resource
+    name ("pods", "cpu", "memory", "services", ...)."""
+
+    hard: Dict[str, object] = field(default_factory=dict)
+
+
+@dataclass
+class ResourceQuotaStatus:
+    hard: Dict[str, object] = field(default_factory=dict)
+    used: Dict[str, object] = field(default_factory=dict)
+
+
+@dataclass
+class ResourceQuota:
+    metadata: ObjectMeta = field(default_factory=ObjectMeta)
+    spec: ResourceQuotaSpec = field(default_factory=ResourceQuotaSpec)
+    status: ResourceQuotaStatus = field(default_factory=ResourceQuotaStatus)
+
+
+@dataclass
+class PetSetSpec:
+    """pkg/apis/apps/types.go PetSetSpec (the 1.3-era StatefulSet):
+    ordered, stably-named pods <name>-0 .. <name>-<replicas-1>."""
+
+    replicas: int = 1
+    selector: Optional[LabelSelector] = None
+    template: Optional[PodTemplateSpec] = None
+    service_name: str = ""
+
+
+@dataclass
+class PetSetStatus:
+    replicas: int = 0
+    observed_generation: int = 0
+
+
+@dataclass
+class PetSet:
+    metadata: ObjectMeta = field(default_factory=ObjectMeta)
+    spec: PetSetSpec = field(default_factory=PetSetSpec)
+    status: PetSetStatus = field(default_factory=PetSetStatus)
+
+
+@dataclass
+class LimitRangeItem:
+    """pkg/api/types.go LimitRangeItem (type Container/Pod)."""
+
+    type: str = "Container"
+    max: Dict[str, object] = field(default_factory=dict)
+    min: Dict[str, object] = field(default_factory=dict)
+    default: Dict[str, object] = field(default_factory=dict)
+    default_request: Dict[str, object] = field(default_factory=dict)
+
+
+@dataclass
+class LimitRangeSpec:
+    limits: List[LimitRangeItem] = field(default_factory=list)
+
+
+@dataclass
+class LimitRange:
+    metadata: ObjectMeta = field(default_factory=ObjectMeta)
+    spec: LimitRangeSpec = field(default_factory=LimitRangeSpec)
+
+
+@dataclass
+class ServiceAccount:
+    metadata: ObjectMeta = field(default_factory=ObjectMeta)
+    secrets: List[str] = field(default_factory=list)
+
+
+@dataclass
+class Secret:
+    metadata: ObjectMeta = field(default_factory=ObjectMeta)
+    type: str = "Opaque"
+    data: Dict[str, str] = field(default_factory=dict)
+
+
+@dataclass
+class ThirdPartyResource:
+    """extensions ThirdPartyResource (pkg/apis/extensions types.go +
+    master.go:610 dynamic installation). name = <kebab-kind>.<domain>;
+    versions flattened to their names."""
+
+    metadata: ObjectMeta = field(default_factory=ObjectMeta)
+    description: str = ""
+    versions: Tuple[str, ...] = ()
+
+
+@dataclass
+class ConfigMap:
+    metadata: ObjectMeta = field(default_factory=ObjectMeta)
+    data: Dict[str, str] = field(default_factory=dict)
+
+
+# --- helpers ----------------------------------------------------------------
+
+
+def pod_resource_request(pod: Pod) -> Tuple[int, int, int]:
+    """(milliCPU, memoryBytes, gpu) for fit checks.
+
+    predicates.go:355-374 getResourceRequest: sum over containers, then take
+    elementwise max with each init container (cpu/mem only for the max rule).
+    """
+    mcpu = sum(resource_list_cpu_milli(c.requests) for c in pod.spec.containers)
+    mem = sum(resource_list_memory(c.requests) for c in pod.spec.containers)
+    gpu = sum(resource_list_gpu(c.requests) for c in pod.spec.containers)
+    for c in pod.spec.init_containers:
+        mcpu = max(mcpu, resource_list_cpu_milli(c.requests))
+        mem = max(mem, resource_list_memory(c.requests))
+    return mcpu, mem, gpu
+
+
+def pod_nonzero_request(pod: Pod) -> Tuple[int, int]:
+    """(milliCPU, memoryBytes) with per-container defaults for priorities.
+
+    priorities/util/non_zero.go:34-56 — a container that does not mention a
+    resource key at all is charged 100m / 200Mi; an explicit zero stays zero.
+    Init containers are NOT included (NodeInfo sums only spec.Containers).
+    """
+    mcpu = 0
+    mem = 0
+    for c in pod.spec.containers:
+        if "cpu" in c.requests:
+            mcpu += resource_list_cpu_milli(c.requests)
+        else:
+            mcpu += 100
+        if "memory" in c.requests:
+            mem += resource_list_memory(c.requests)
+        else:
+            mem += 200 * 1024 * 1024
+    return mcpu, mem
+
+
+def _jget(d: dict, key: str, default=None):
+    """Go encoding/json field matching: exact key first, else
+    case-insensitive. The reference's alpha-annotation payloads rely on
+    this (predicates_test.go writes "PodAntiAffinity"), so exact-case
+    lookups silently drop terms Go would honor."""
+    if key in d:
+        return d[key]
+    lk = key.lower()
+    for k, v in d.items():
+        if k.lower() == lk:
+            return v
+    return default
+
+
+def _node_selector_requirement_from_json(d: dict) -> NodeSelectorRequirement:
+    return NodeSelectorRequirement(
+        key=_jget(d, "key", ""),
+        operator=_jget(d, "operator", "In"),
+        values=tuple(_jget(d, "values") or ()),
+    )
+
+
+def _node_selector_from_json(d: dict) -> NodeSelector:
+    terms = []
+    for t in _jget(d, "nodeSelectorTerms") or ():
+        terms.append(
+            NodeSelectorTerm(
+                match_expressions=tuple(
+                    _node_selector_requirement_from_json(e)
+                    for e in _jget(t, "matchExpressions") or ()
+                )
+            )
+        )
+    return NodeSelector(node_selector_terms=tuple(terms))
+
+
+def _label_selector_from_json(d: Optional[dict]) -> Optional[LabelSelector]:
+    if d is None:
+        return None
+    return LabelSelector(
+        match_labels=dict(_jget(d, "matchLabels") or {}),
+        match_expressions=tuple(
+            LabelSelectorRequirement(
+                key=_jget(e, "key", ""),
+                operator=_jget(e, "operator", "In"),
+                values=tuple(_jget(e, "values") or ()),
+            )
+            for e in _jget(d, "matchExpressions") or ()
+        ),
+    )
+
+
+def _pod_affinity_term_from_json(d: dict) -> PodAffinityTerm:
+    ns = _jget(d, "namespaces")
+    return PodAffinityTerm(
+        label_selector=_label_selector_from_json(_jget(d, "labelSelector")),
+        namespaces=None if ns is None else tuple(ns),
+        topology_key=_jget(d, "topologyKey", ""),
+    )
+
+
+def get_affinity(pod: Pod) -> Optional[Affinity]:
+    """Affinity from the spec field, else the v1.3 alpha annotation
+    (pkg/api/helpers.go GetAffinityFromPodAnnotations)."""
+    if pod.spec.affinity is not None:
+        return pod.spec.affinity
+    raw = pod.metadata.annotations.get(AFFINITY_ANNOTATION)
+    if not raw:
+        return None
+    d = json.loads(raw)
+    aff = Affinity()
+    na = _jget(d, "nodeAffinity")
+    if na:
+        req = _jget(na, "requiredDuringSchedulingIgnoredDuringExecution")
+        pref = _jget(na, "preferredDuringSchedulingIgnoredDuringExecution") or ()
+        aff.node_affinity = NodeAffinity(
+            required_during_scheduling_ignored_during_execution=(
+                _node_selector_from_json(req) if req else None
+            ),
+            preferred_during_scheduling_ignored_during_execution=tuple(
+                PreferredSchedulingTerm(
+                    weight=_jget(p, "weight", 1),
+                    preference=NodeSelectorTerm(
+                        match_expressions=tuple(
+                            _node_selector_requirement_from_json(e)
+                            for e in _jget(
+                                _jget(p, "preference") or {}, "matchExpressions"
+                            )
+                            or ()
+                        )
+                    ),
+                )
+                for p in pref
+            ),
+        )
+    pa = _jget(d, "podAffinity")
+    if pa:
+        aff.pod_affinity = PodAffinity(
+            required_during_scheduling_ignored_during_execution=tuple(
+                _pod_affinity_term_from_json(t)
+                for t in _jget(pa, "requiredDuringSchedulingIgnoredDuringExecution") or ()
+            ),
+            preferred_during_scheduling_ignored_during_execution=tuple(
+                WeightedPodAffinityTerm(
+                    weight=_jget(t, "weight", 1),
+                    pod_affinity_term=_pod_affinity_term_from_json(
+                        _jget(t, "podAffinityTerm") or {}
+                    ),
+                )
+                for t in _jget(pa, "preferredDuringSchedulingIgnoredDuringExecution")
+                or ()
+            ),
+        )
+    paa = _jget(d, "podAntiAffinity")
+    if paa:
+        aff.pod_anti_affinity = PodAntiAffinity(
+            required_during_scheduling_ignored_during_execution=tuple(
+                _pod_affinity_term_from_json(t)
+                for t in _jget(paa, "requiredDuringSchedulingIgnoredDuringExecution")
+                or ()
+            ),
+            preferred_during_scheduling_ignored_during_execution=tuple(
+                WeightedPodAffinityTerm(
+                    weight=_jget(t, "weight", 1),
+                    pod_affinity_term=_pod_affinity_term_from_json(
+                        _jget(t, "podAffinityTerm") or {}
+                    ),
+                )
+                for t in _jget(paa, "preferredDuringSchedulingIgnoredDuringExecution")
+                or ()
+            ),
+        )
+    return aff
+
+
+def get_tolerations(pod: Pod) -> List[Toleration]:
+    """Tolerations from the spec field, else the alpha annotation."""
+    if pod.spec.tolerations is not None:
+        return pod.spec.tolerations
+    raw = pod.metadata.annotations.get(TOLERATIONS_ANNOTATION)
+    if not raw:
+        return []
+    return [
+        Toleration(
+            key=_jget(t, "key", ""),
+            operator=_jget(t, "operator", "") or "Equal",
+            value=_jget(t, "value", ""),
+            effect=_jget(t, "effect", ""),
+        )
+        for t in json.loads(raw)
+    ]
+
+
+def get_taints(node: Node) -> List[Taint]:
+    """Taints from the spec field, else the alpha annotation."""
+    if node.spec.taints is not None:
+        return node.spec.taints
+    raw = node.metadata.annotations.get(TAINTS_ANNOTATION)
+    if not raw:
+        return []
+    return [
+        Taint(
+            key=_jget(t, "key", ""),
+            value=_jget(t, "value", ""),
+            effect=_jget(t, "effect", "NoSchedule"),
+        )
+        for t in json.loads(raw)
+    ]
+
+
+# --- Ingress (extensions/types.go:426-560) ----------------------------------
+
+
+@dataclass
+class IngressBackend:
+    """extensions/types.go:560 IngressBackend."""
+
+    service_name: str = ""
+    service_port: object = 0  # int or named port (intstr)
+
+
+@dataclass
+class HTTPIngressPath:
+    """extensions/types.go:550 HTTPIngressPath: path regex -> backend."""
+
+    path: str = ""
+    backend: IngressBackend = field(default_factory=IngressBackend)
+
+
+@dataclass
+class IngressRule:
+    """extensions/types.go:500 IngressRule (RuleValue.HTTP flattened)."""
+
+    host: str = ""
+    http_paths: List[HTTPIngressPath] = field(default_factory=list)
+
+
+@dataclass
+class IngressTLS:
+    """extensions/types.go:478 IngressTLS."""
+
+    hosts: List[str] = field(default_factory=list)
+    secret_name: str = ""
+
+
+@dataclass
+class IngressSpec:
+    """extensions/types.go:455 IngressSpec."""
+
+    backend: Optional[IngressBackend] = None
+    tls: List[IngressTLS] = field(default_factory=list)
+    rules: List[IngressRule] = field(default_factory=list)
+
+
+@dataclass
+class IngressStatus:
+    """extensions/types.go:471 IngressStatus: the fronting LB."""
+
+    load_balancer: LoadBalancerStatus = field(
+        default_factory=LoadBalancerStatus
+    )
+
+
+@dataclass
+class Ingress:
+    metadata: ObjectMeta = field(default_factory=ObjectMeta)
+    spec: IngressSpec = field(default_factory=IngressSpec)
+    status: IngressStatus = field(default_factory=IngressStatus)
+
+
+# --- NetworkPolicy (extensions/types.go:806-893) ----------------------------
+
+
+@dataclass
+class NetworkPolicyPort:
+    """extensions/types.go:861 NetworkPolicyPort."""
+
+    protocol: str = "TCP"
+    port: object = None  # int, named port, or None == all ports
+
+
+@dataclass
+class NetworkPolicyPeer:
+    """extensions/types.go:874 NetworkPolicyPeer: exactly one of
+    pod_selector (this namespace) / namespace_selector. None == not
+    specified; {} == select all (the reference's pointer semantics)."""
+
+    pod_selector: Optional[Dict[str, str]] = None
+    namespace_selector: Optional[Dict[str, str]] = None
+
+
+@dataclass
+class NetworkPolicyIngressRule:
+    """extensions/types.go:841 NetworkPolicyIngressRule."""
+
+    ports: List[NetworkPolicyPort] = field(default_factory=list)
+    from_peers: List[NetworkPolicyPeer] = field(default_factory=list)
+
+
+@dataclass
+class NetworkPolicySpec:
+    """extensions/types.go:821 NetworkPolicySpec."""
+
+    pod_selector: Dict[str, str] = field(default_factory=dict)
+    ingress: List[NetworkPolicyIngressRule] = field(default_factory=list)
+
+
+@dataclass
+class NetworkPolicy:
+    metadata: ObjectMeta = field(default_factory=ObjectMeta)
+    spec: NetworkPolicySpec = field(default_factory=NetworkPolicySpec)
+
+
+# --- PodDisruptionBudget (policy/types.go:23-66) ----------------------------
+
+
+@dataclass
+class PodDisruptionBudgetSpec:
+    """policy/types.go:26 PodDisruptionBudgetSpec."""
+
+    min_available: object = 0  # int or percentage string ("28%")
+    selector: Dict[str, str] = field(default_factory=dict)
+
+
+@dataclass
+class PodDisruptionBudgetStatus:
+    """policy/types.go:38 PodDisruptionBudgetStatus."""
+
+    disruption_allowed: bool = False
+    current_healthy: int = 0
+    desired_healthy: int = 0
+    expected_pods: int = 0
+
+
+@dataclass
+class PodDisruptionBudget:
+    metadata: ObjectMeta = field(default_factory=ObjectMeta)
+    spec: PodDisruptionBudgetSpec = field(
+        default_factory=PodDisruptionBudgetSpec
+    )
+    status: PodDisruptionBudgetStatus = field(
+        default_factory=PodDisruptionBudgetStatus
+    )
+
+
+# --- PodSecurityPolicy (extensions/types.go:630-780) ------------------------
+
+
+@dataclass
+class HostPortRange:
+    """extensions/types.go:676 HostPortRange (inclusive)."""
+
+    min: int = 0
+    max: int = 0
+
+
+@dataclass
+class PodSecurityPolicySpec:
+    """extensions/types.go:640 PodSecurityPolicySpec (strategy options
+    flattened to their rule names: RunAsAny | MustRunAs...)."""
+
+    privileged: bool = False
+    default_add_capabilities: List[str] = field(default_factory=list)
+    required_drop_capabilities: List[str] = field(default_factory=list)
+    allowed_capabilities: List[str] = field(default_factory=list)
+    volumes: List[str] = field(default_factory=list)  # FSType whitelist
+    host_network: bool = False
+    host_ports: List[HostPortRange] = field(default_factory=list)
+    host_pid: bool = False
+    host_ipc: bool = False
+    se_linux_rule: str = "RunAsAny"
+    run_as_user_rule: str = "RunAsAny"
+    supplemental_groups_rule: str = "RunAsAny"
+
+
+@dataclass
+class PodSecurityPolicy:
+    metadata: ObjectMeta = field(default_factory=ObjectMeta)
+    spec: PodSecurityPolicySpec = field(
+        default_factory=PodSecurityPolicySpec
+    )
+
+
+# --- PodTemplate (api/types.go:1568 PodTemplate) ----------------------------
+
+
+@dataclass
+class PodTemplate:
+    metadata: ObjectMeta = field(default_factory=ObjectMeta)
+    template: PodTemplateSpec = field(default_factory=PodTemplateSpec)
+
+
+# --- ComponentStatus (api/types.go:2711-2733) -------------------------------
+
+
+@dataclass
+class ComponentCondition:
+    """api/types.go:2718 ComponentCondition."""
+
+    type: str = "Healthy"
+    status: str = "Unknown"  # True | False | Unknown
+    message: str = ""
+    error: str = ""
+
+
+@dataclass
+class ComponentStatus:
+    """api/types.go:2728 ComponentStatus: control-plane component
+    health, served virtually (registry/componentstatus does a live
+    healthz probe per GET; nothing is stored)."""
+
+    metadata: ObjectMeta = field(default_factory=ObjectMeta)
+    conditions: List[ComponentCondition] = field(default_factory=list)
+
+
+# --- RBAC (pkg/apis/rbac/types.go) ------------------------------------------
+
+
+@dataclass
+class PolicyRule:
+    """rbac/types.go:43 PolicyRule ('*' means all, :31-34)."""
+
+    verbs: List[str] = field(default_factory=list)
+    api_groups: List[str] = field(default_factory=list)
+    resources: List[str] = field(default_factory=list)
+    resource_names: List[str] = field(default_factory=list)
+    non_resource_urls: List[str] = field(default_factory=list)
+
+
+@dataclass
+class RBACSubject:
+    """rbac/types.go:64 Subject: User | Group | ServiceAccount."""
+
+    kind: str = "User"
+    name: str = ""
+    namespace: str = ""  # ServiceAccount subjects only
+
+
+@dataclass
+class RoleRef:
+    """rbac/types.go RoleRef: Role (same namespace) or ClusterRole."""
+
+    kind: str = "Role"
+    name: str = ""
+
+
+@dataclass
+class Role:
+    """rbac/types.go:79 Role (namespaced rule set)."""
+
+    metadata: ObjectMeta = field(default_factory=ObjectMeta)
+    rules: List[PolicyRule] = field(default_factory=list)
+
+
+@dataclass
+class ClusterRole:
+    """rbac/types.go ClusterRole (cluster-wide rule set)."""
+
+    metadata: ObjectMeta = field(default_factory=ObjectMeta)
+    rules: List[PolicyRule] = field(default_factory=list)
+
+
+@dataclass
+class RoleBinding:
+    """rbac/types.go:91 RoleBinding: subjects -> role in one namespace."""
+
+    metadata: ObjectMeta = field(default_factory=ObjectMeta)
+    subjects: List[RBACSubject] = field(default_factory=list)
+    role_ref: RoleRef = field(default_factory=RoleRef)
+
+
+@dataclass
+class ClusterRoleBinding:
+    """rbac/types.go ClusterRoleBinding: subjects -> ClusterRole,
+    cluster-wide."""
+
+    metadata: ObjectMeta = field(default_factory=ObjectMeta)
+    subjects: List[RBACSubject] = field(default_factory=list)
+    role_ref: RoleRef = field(default_factory=RoleRef)
+
+
+# --- AI-cluster workload API (scheduling group) ------------------------------
+
+#: pods join a gang by carrying this label; its value names a PodGroup
+#: in the pod's namespace
+POD_GROUP_LABEL = "scheduler.k8s.io/pod-group"
+
+
+@dataclass
+class PriorityClass:
+    """scheduling.k8s.io PriorityClass: a named priority tier. Higher
+    ``value`` preempts lower; equal-or-higher is never evicted (the
+    preemption invariant the gang scheduler enforces)."""
+
+    metadata: ObjectMeta = field(default_factory=ObjectMeta)
+    value: int = 0
+    global_default: bool = False
+    description: str = ""
+
+
+@dataclass
+class PodGroupSpec:
+    """Gang semantics for a set of pods labeled
+    ``scheduler.k8s.io/pod-group: <name>`` (Kant/Volcano-style
+    all-or-nothing co-scheduling):
+
+    * ``min_member`` — the gang schedules only when at least this many
+      members can bind in one wave; fewer never partially bind.
+    * ``priority_class_name`` / ``priority`` — the gang's tier. The
+      admission plugin resolves the class name into ``priority`` at
+      create time so the scheduler never needs the class list.
+    * ``queue`` — the quota scope (tenant) this gang charges; defaults
+      to the namespace.
+    * ``quota`` — hard budget for the gang's members: ``pods`` (member
+      count) and ``devices`` (summed accelerator requests). Enforced at
+      apiserver admission (403 on exceed); usage is computed from live
+      store state, so deletes release it with no bookkeeping to leak.
+    * ``workload_class`` — row of the cluster's per-accelerator-type
+      throughput matrix (Gavel-style normalized throughput) used as a
+      placement score term for this gang's members.
+    """
+
+    min_member: int = 1
+    priority_class_name: str = ""
+    priority: int = 0
+    queue: str = ""
+    quota: Dict[str, object] = field(default_factory=dict)
+    workload_class: str = ""
+
+
+@dataclass
+class PodGroupStatus:
+    #: Pending | Scheduling | Scheduled | Parked | Preempting
+    phase: str = "Pending"
+    #: members currently bound to nodes
+    scheduled: int = 0
+    #: members observed (bound + queued)
+    members: int = 0
+    #: names of members that could not be placed in the last wave
+    unschedulable: List[str] = field(default_factory=list)
+    #: human-readable parking reason (missing members / resources)
+    message: str = ""
+    #: victims evicted on this gang's behalf, lifetime total
+    preempted: int = 0
+
+
+@dataclass
+class PodGroup:
+    metadata: ObjectMeta = field(default_factory=ObjectMeta)
+    spec: PodGroupSpec = field(default_factory=PodGroupSpec)
+    status: PodGroupStatus = field(default_factory=PodGroupStatus)
+
+
+# --- Scale subresource (extensions/types.go Scale) ---------------------------
+
+
+@dataclass
+class ScaleSpec:
+    replicas: int = 0
+
+
+@dataclass
+class ScaleStatus:
+    replicas: int = 0
+    selector: Dict[str, str] = field(default_factory=dict)
+
+
+@dataclass
+class Scale:
+    """extensions/types.go Scale: the one shape every scalable
+    resource's /scale subresource serves (registry/.../etcd ScaleREST)."""
+
+    metadata: ObjectMeta = field(default_factory=ObjectMeta)
+    spec: ScaleSpec = field(default_factory=ScaleSpec)
+    status: ScaleStatus = field(default_factory=ScaleStatus)
+
+
+def shallow_copy(obj):
+    """One-layer copy of one of these plain-__dict__ dataclasses
+    without the copy.copy detour through __reduce_ex__ (~25us ->
+    ~1us for pod+spec — real money at 30k copies per wave burst).
+    Callers must re-copy exactly the nested layers they mutate; the
+    rest stays shared with the source object."""
+    new = obj.__class__.__new__(obj.__class__)
+    new.__dict__.update(obj.__dict__)
+    return new

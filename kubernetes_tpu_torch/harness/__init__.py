@@ -1,0 +1,1 @@
+"""Scenario builders shared by the tests and chip_smoke.py."""

@@ -1,0 +1,276 @@
+"""Cluster and backlog builders shared by the tests and chip_smoke.py.
+
+Every builder takes the `types` module of the package whose objects it
+should build (kubernetes_tpu_torch.api.types, or the JAX package's
+kubernetes_tpu.api.types in the parity tests), so one description makes
+the same scenario in both packages. The shapes follow the
+scheduler_perf density test (nodes: 4 CPU / 32Gi / 110 pods; pods:
+100m / 500Mi pause containers) and the JAX package's wave tests.
+"""
+
+from __future__ import annotations
+
+import json
+import random
+
+ZONE = "failure-domain.beta.kubernetes.io/zone"
+HOSTNAME = "kubernetes.io/hostname"
+AFFINITY_ANNOTATION = "scheduler.alpha.kubernetes.io/affinity"
+
+
+def density_nodes(T, n, pods_cap="110", cpu="4", mem="32Gi", taint_every=0):
+    """n Ready nodes named node-0000.. (PreferNoSchedule taint on every
+    taint_every-th node when set)."""
+    nodes = []
+    for i in range(n):
+        spec = T.NodeSpec()
+        if taint_every and i % taint_every == 0:
+            spec = T.NodeSpec(taints=[T.Taint(
+                key="dedicated", value="a", effect="PreferNoSchedule")])
+        nodes.append(T.Node(
+            metadata=T.ObjectMeta(name=f"node-{i:04d}"),
+            spec=spec,
+            status=T.NodeStatus(
+                allocatable={"cpu": cpu, "memory": mem, "pods": pods_cap},
+                conditions=[T.NodeCondition("Ready", "True")],
+            ),
+        ))
+    return nodes
+
+
+def zoned_density_nodes(T, n, zones=("a", "b", "c"), unzoned_every=0,
+                        pods_cap="110"):
+    """density_nodes with round-robin zone labels (every
+    unzoned_every-th node left without one)."""
+    nodes = density_nodes(T, n, pods_cap=pods_cap)
+    for i, node in enumerate(nodes):
+        if unzoned_every and i % unzoned_every == 0:
+            continue
+        node.metadata.labels[ZONE] = zones[i % len(zones)]
+    return nodes
+
+
+def hostname_nodes(T, n, **kw):
+    """density_nodes carrying the hostname label (a topology domain per
+    node)."""
+    nodes = density_nodes(T, n, **kw)
+    for node in nodes:
+        node.metadata.labels[HOSTNAME] = node.metadata.name
+    return nodes
+
+
+def pause_pods(T, k, labels=None, requests=None, name0=0, prefix="pod"):
+    """k identical pause pods (one RC template)."""
+    labels = labels or {"name": "sched-perf"}
+    requests = requests or {"cpu": "100m", "memory": "500Mi"}
+    return [
+        T.Pod(
+            metadata=T.ObjectMeta(name=f"{prefix}-{name0 + i:06d}",
+                                  labels=dict(labels)),
+            spec=T.PodSpec(containers=[T.Container(requests=dict(requests))]),
+        )
+        for i in range(k)
+    ]
+
+
+def port_pods(T, k, host_port=8080, name0=0):
+    """k identical pods holding one host port (one copy per node)."""
+    return [
+        T.Pod(
+            metadata=T.ObjectMeta(name=f"port-{name0 + i:05d}",
+                                  labels={"app": "p"}),
+            spec=T.PodSpec(containers=[T.Container(
+                requests={"cpu": "100m"},
+                ports=[T.ContainerPort(host_port=host_port)])]),
+        )
+        for i in range(k)
+    ]
+
+
+def anti_pods(T, k, labels, topo=HOSTNAME, name0=0, requests=None,
+              sel_labels=None):
+    """k identical pods with hard pod anti-affinity (alpha annotation)
+    against `sel_labels` (their own labels by default) over `topo`."""
+    out = []
+    for i in range(k):
+        p = T.Pod(
+            metadata=T.ObjectMeta(name=f"anti-{name0 + i:05d}",
+                                  labels=dict(labels)),
+            spec=T.PodSpec(containers=[T.Container(
+                requests=dict(requests or {"cpu": "100m"}))]),
+        )
+        p.metadata.annotations = {AFFINITY_ANNOTATION: json.dumps({
+            "podAntiAffinity": {
+                "requiredDuringSchedulingIgnoredDuringExecution": [{
+                    "labelSelector": {
+                        "matchLabels": sel_labels or dict(labels)},
+                    "topologyKey": topo,
+                    "namespaces": [],
+                }],
+            },
+        })}
+        out.append(p)
+    return out
+
+
+def service(T, name, selector):
+    return T.Service(metadata=T.ObjectMeta(name=name),
+                     spec=T.ServiceSpec(selector=dict(selector)))
+
+
+def mixed_cluster(T, n_nodes, seed=0):
+    """-> (nodes, services): a heterogeneous cluster. Nodes mix sizes,
+    four zones (a tenth unzoned), a disktype label on half, a
+    PreferNoSchedule taint on every 10th, a NoSchedule gpu taint on
+    every 25th, and memory pressure on every 17th."""
+    rng = random.Random(seed)
+    nodes = []
+    for i in range(n_nodes):
+        name = f"node-{i:05d}"
+        labels = {HOSTNAME: name}
+        if i % 10:
+            labels[ZONE] = "abcd"[rng.randrange(4)]
+        if rng.random() < 0.5:
+            labels["disktype"] = rng.choice(["ssd", "hdd"])
+        taints = []
+        if i % 10 == 3:
+            taints.append(T.Taint(key="dedicated", value="infra",
+                                  effect="PreferNoSchedule"))
+        if i % 25 == 7:
+            taints.append(T.Taint(key="gpu", value="true",
+                                  effect="NoSchedule"))
+        conds = [T.NodeCondition("Ready", "True")]
+        if i % 17 == 5:
+            conds.append(T.NodeCondition("MemoryPressure", "True"))
+        nodes.append(T.Node(
+            metadata=T.ObjectMeta(name=name, labels=labels),
+            spec=T.NodeSpec(taints=taints or None),
+            status=T.NodeStatus(
+                allocatable={
+                    "cpu": rng.choice(["2", "4", "8"]),
+                    "memory": rng.choice(["8Gi", "16Gi", "32Gi"]),
+                    "pods": rng.choice(["30", "110", "110"]),
+                },
+                conditions=conds,
+            ),
+        ))
+    services = [service(T, "web", {"app": "web"}),
+                service(T, "api", {"app": "api"})]
+    return nodes, services
+
+
+def mixed_backlog(T, scale=1, seed=0):
+    """A FIFO backlog of RC templates (runs of >= 16 identical pods: a
+    zone-spread web tier, an api tier pinned to ssd nodes, a host-port
+    agent, best-effort batch pods, gpu-tolerating pods) interleaved with
+    runs shorter than the wave's min_run and singletons, which take the
+    serial scan. `scale` multiplies the template runs."""
+    rng = random.Random(seed)
+
+    def pod(name, labels, requests, **spec_kw):
+        return T.Pod(
+            metadata=T.ObjectMeta(name=name, labels=dict(labels)),
+            spec=T.PodSpec(
+                containers=[T.Container(requests=dict(requests),
+                                        ports=spec_kw.pop("ports", []))],
+                **spec_kw),
+        )
+
+    def run(prefix, k, labels, requests, **spec_kw):
+        return [pod(f"{prefix}-{i:05d}", labels, requests, **dict(spec_kw))
+                for i in range(k)]
+
+    def singles(prefix, k):
+        return [pod(f"{prefix}-{i:03d}", {"app": "misc"},
+                    {"cpu": f"{110 + 7 * rng.randrange(40)}m",
+                     "memory": f"{64 * (1 + rng.randrange(16))}Mi"})
+                for i in range(k)]
+
+    def short_runs(prefix, k):
+        out = []
+        for r in range(k):
+            req = {"cpu": f"{300 + 50 * r}m", "memory": "256Mi"}
+            out += run(f"{prefix}{r}", rng.randint(2, 6), {"app": "job"}, req)
+        return out
+
+    web = {"cpu": "250m", "memory": "512Mi"}
+    backlog = []
+    backlog += run("web-a", 60 * scale, {"app": "web"}, web)
+    backlog += singles("single-a", 8)
+    backlog += run("api", 40 * scale, {"app": "api"},
+                   {"cpu": "500m", "memory": "1Gi"},
+                   node_selector={"disktype": "ssd"})
+    backlog += short_runs("job-a", 4)
+    backlog += run("agent", 24 * scale, {"app": "agent"},
+                   {"cpu": "100m", "memory": "128Mi"},
+                   ports=[T.ContainerPort(host_port=9100)])
+    backlog += run("web-b", 60 * scale, {"app": "web"}, web)
+    backlog += run("batch", 20 * scale, {"app": "batch"}, {})
+    backlog += singles("single-b", 8)
+    backlog += run("gpu", 16 * scale, {"app": "gpu"}, {"cpu": "1"},
+                   tolerations=[T.Toleration(key="gpu", operator="Equal",
+                                             value="true",
+                                             effect="NoSchedule")])
+    backlog += short_runs("job-b", 3)
+    return backlog
+
+
+def probe_case(N, seed, *, alloc_zero=False, zero_req=False,
+               integer_ba=False):
+    """-> (alloc, usage, pod): numpy inputs of one probe resource sweep
+    (ops/probe_kernel.resource_probe): alloc = (alloc_mcpu, alloc_mem,
+    alloc_gpu, alloc_pods) i64[N]; usage = the carry's (req_mcpu,
+    req_mem, req_gpu, nz_mcpu, nz_mem, pod_count) i64[N]; pod = the nine
+    pod scalars as ints. The edge cases: alloc_zero zeroes a third of the
+    allocations (BalancedAllocation's fraction is then 1.0, and nothing
+    fits); zero_req makes a zero-request pod (it skips cpu/mem/gpu but not
+    the pod count); integer_ba puts the cpu and mem fractions on
+    multiples of 0.01, so 10 - 10*|diff| often lands on an integer and a
+    fused multiply-add or a wrong truncation would move it by one."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    a_cpu = rng.choice([2000, 4000, 8000], N)
+    a_mem = rng.choice([8, 16, 32], N) * 2**30
+    a_gpu = rng.choice([0, 0, 1, 2], N)
+    a_pods = rng.choice([30, 110], N)
+    if alloc_zero:
+        for a in (a_cpu, a_mem, a_pods):
+            a[rng.random(N) < 0.3] = 0
+    u_cpu = (a_cpu * rng.random(N) * 0.9).astype(np.int64)
+    u_mem = (a_mem * rng.random(N) * 0.9).astype(np.int64)
+    u_gpu = np.minimum(rng.integers(0, 2, N), a_gpu)
+    u_cnt = (a_pods * rng.random(N) * 0.5).astype(np.int64)
+    u_nzc = u_cpu + 100 * rng.integers(0, 3, N)
+    u_nzm = u_mem + 200 * 2**20 * rng.integers(0, 3, N)
+    pod = dict(req_mcpu=100, req_mem=500 * 2**20, req_gpu=0, zero_req=0,
+               commit_mcpu=100, commit_mem=500 * 2**20, commit_gpu=0,
+               nz_mcpu=100, nz_mem=500 * 2**20)
+    if zero_req:
+        pod.update(req_mcpu=0, req_mem=0, zero_req=1, commit_mcpu=0,
+                   commit_mem=0, nz_mcpu=100, nz_mem=200 * 2**20)
+    if integer_ba:
+        a_cpu[:] = 1000
+        a_mem[:] = 1000
+        u_nzc = 10 * rng.integers(0, 50, N)
+        u_nzm = 10 * rng.integers(0, 50, N)
+        pod.update(nz_mcpu=10, nz_mem=20)
+    alloc = tuple(np.asarray(a, np.int64) for a in (a_cpu, a_mem, a_gpu,
+                                                    a_pods))
+    usage = tuple(np.asarray(a, np.int64)
+                  for a in (u_cpu, u_mem, u_gpu, u_nzc, u_nzm, u_cnt))
+    return alloc, usage, pod
+
+
+#: (label, J, N, options) of the probe kernel's checks: the main path's
+#: shapes (J = the pick_j floor of 128 and the max_j of 1024; N = nodes
+#: padded to a power of two) and the edge inputs
+PROBE_CASES = (
+    ("main J=128 N=1024", 128, 1024, {}),
+    ("main J=128 N=8192", 128, 8192, {}),
+    ("main J=1024 N=1024", 1024, 1024, {}),
+    ("edge alloc 0", 128, 1024, {"alloc_zero": True}),
+    ("edge zero-request pod", 128, 1024, {"zero_req": True}),
+    ("edge wants_res=False", 128, 1024, {"wants_res": False}),
+    ("edge integer BA", 128, 1024, {"integer_ba": True}),
+)

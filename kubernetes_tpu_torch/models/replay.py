@@ -1,0 +1,287 @@
+"""Host replay of one run's pick sequence from RunTables.
+
+Reproduces, bit-identically, what the serial device scan
+(models/batch._scan_fn) would decide for K consecutive identical pods:
+per pick, the combined score vector is reassembled from the probe's
+tables at the current per-node commit counts, and selectHost's exact
+tie rule (score desc, name desc, round-robin over lastNodeIndex —
+generic_scheduler.go:119-134) picks the node.
+
+The float formulas here are term-for-term copies of ops/priorities.py
+(which itself mirrors the Go): float32 for SelectorSpread, float64 for
+the NodeAffinity/TaintToleration/InterPod normalizers, truncation
+toward zero on int conversion.  tests/test_wave.py differentially
+verifies replay == scan on fuzzed fixtures.
+
+This module is the readable spec; the C engine (native/replay.c, via
+models/wave.py) implements the same process in O(log N) per pick and is
+differentially tested against this one.
+
+Copy of kubernetes_tpu/models/replay.py: only the import package differs.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from dataclasses import dataclass
+
+import numpy as np
+
+from kubernetes_tpu_torch.models.probe import RunTables
+
+
+@dataclass
+class ReplayResult:
+    chosen: np.ndarray  # i32[n_done] node ids; -1 == unschedulable
+    counts: np.ndarray  # i64[N] commits per node
+    n_done: int  # pods decided; < K only when the replay bailed
+    last_node_index: int
+    scheduled: int  # total commits (== counts.sum())
+
+
+def _scores(t: RunTables, j: np.ndarray, fit: np.ndarray) -> np.ndarray:
+    """Assemble the combined i64 score vector at commit counts j —
+    the host mirror of the priority section of models/batch._scan_fn."""
+    N = j.shape[0]
+    score = t.tab[j, np.arange(N)] + t.static_add
+    any_fit = bool(fit.any())
+    if t.spread_base is not None:
+        # ops/priorities.selector_spread (float32 math, both branches)
+        c = t.spread_base + (j if t.spread_selfmatch else 0)
+        c = np.where(fit, c, 0)
+        M = int(c[fit].max()) if any_fit else 0
+        M = max(M, 0)
+        f = np.full(N, np.float32(10.0), np.float32)
+        if M > 0:
+            f = np.float32(10.0) * (
+                (M - c).astype(np.float32) / np.float32(M)
+            )
+        if t.zone_id is not None:
+            # zone blend over the LIVE fit set (selector_spreading.go
+            # :221-228): per-zone counts aggregate the filtered node
+            # counts; zone 0 == unzoned never participates. The
+            # reference has NO maxZone>0 guard — 0/0 is float32 NaN and
+            # Go's int(NaN) is minInt64; mirrored at the conversion.
+            zc = np.zeros(t.num_zones, np.int64)
+            np.add.at(zc, t.zone_id, c)
+            have_zones = bool(np.any(fit & (t.zone_id > 0)))
+            max_zone = int(zc[1:].max()) if t.num_zones > 1 else 0
+            max_zone = max(max_zone, 0)
+            with np.errstate(invalid="ignore", divide="ignore"):
+                zone_score = np.float32(10.0) * (
+                    (max_zone - zc[t.zone_id]).astype(np.float32)
+                    / np.float32(max_zone)
+                )
+            # (1 - zoneWeighting) rounds ONCE from the exact 1/3, like
+            # Go's untyped-constant arithmetic (ops/priorities.py)
+            blended = (f * np.float32(1.0 / 3.0)
+                       + np.float32(2.0 / 3.0) * zone_score)
+            f = np.where(have_zones & (t.zone_id > 0), blended, f)
+        if not t.has_selectors:
+            f = np.full(N, np.float32(10.0), np.float32)
+        nan = np.isnan(f)
+        fi = np.where(nan, np.float32(0), f).astype(np.int64)
+        score = score + t.w_spread * np.where(
+            nan, np.int64(-(2**63)), fi
+        )
+    if t.na_counts is not None:
+        # ops/priorities.normalize_counts_up (float64)
+        mx = max(int(t.na_counts[fit].max()) if any_fit else 0, 0)
+        if mx > 0:
+            f = 10.0 * (t.na_counts.astype(np.float64) / np.float64(mx))
+        else:
+            f = np.zeros(N, np.float64)
+        score = score + t.w_na * f.astype(np.int64)
+    if t.tt_counts is not None:
+        # ops/priorities.normalize_counts_down (float64)
+        mx = max(int(t.tt_counts[fit].max()) if any_fit else 0, 0)
+        if mx > 0:
+            f = (1.0 - t.tt_counts.astype(np.float64) / np.float64(mx)) * 10.0
+        else:
+            f = np.full(N, 10.0, np.float64)
+        score = score + t.w_tt * f.astype(np.int64)
+    if t.ip_totals is not None:
+        # ops/interpod.interpod_minmax + interpod_normalize (float64)
+        big = 2**62
+        mx = max(int(t.ip_totals[fit].max()) if any_fit else -big, 0)
+        mn = min(int(t.ip_totals[fit].min()) if any_fit else big, 0)
+        rng = mx - mn
+        if rng > 0:
+            f = 10.0 * ((t.ip_totals - mn).astype(np.float64) / np.float64(rng))
+        else:
+            f = np.zeros(N, np.float64)
+        score = score + t.w_ip * np.where(fit, f.astype(np.int64), 0)
+    if t.w_saa:
+        # ops/services.service_anti_affinity: peers counted on labeled
+        # FIT nodes; the run's own member commits grow counts and total
+        labeled = t.saa_lbl_val >= 0
+        counts = t.saa_counts + (j if t.saa_member else 0)
+        eligible = fit & labeled
+        vals = np.clip(t.saa_lbl_val, 0, max(t.saa_num_values - 1, 0))
+        by_value = np.bincount(
+            vals[eligible], weights=counts[eligible].astype(np.float64),
+            minlength=max(t.saa_num_values, 1),
+        ).astype(np.int64)
+        at_node = by_value[vals]
+        total = t.saa_total + (int(j.sum()) if t.saa_member else 0)
+        if total > 0:
+            f = np.float32(10.0) * (
+                (total - at_node).astype(np.float32) / np.float32(total)
+            )
+        else:
+            f = np.full(N, np.float32(10.0), np.float32)
+        score = score + t.w_saa * np.where(
+            labeled, f.astype(np.int64), np.int64(0)
+        )
+    return score
+
+
+def replay_spec(
+    t: RunTables, K: int, last_node_index: int
+) -> ReplayResult:
+    """Reference replay: full O(N) rescore per pick. Used as the ground
+    truth for the C engine and directly for small runs."""
+    J, N = t.res_fit.shape
+    j = np.zeros(N, np.int64)
+    fit = t.fit_static & t.res_fit[0]
+    sa_mask = None  # ServiceAffinity pin applied after the first pick
+    chosen = np.full(K, -1, np.int32)
+    L = int(last_node_index)
+    n_done = K
+    for step in range(K):
+        if not fit.any():
+            break  # state can no longer change: the rest all fail
+        score = _scores(t, j, fit)
+        smax = score[fit].max()
+        ties = fit & (score == smax)
+        num_ties = int(ties.sum())
+        r = L % num_ties
+        # (r+1)-th tie in name-desc order (ops/select.py). The caller
+        # permutes all tables into name-desc node order before replay,
+        # so position order IS name-desc order here.
+        m = int(np.nonzero(ties)[0][r])
+        chosen[step] = m
+        L += 1
+        j[m] += 1
+        if t.sa_refine_rows is not None and sa_mask is None:
+            # the run's first commit pins the unresolved ServiceAffinity
+            # labels to the picked node's values (ops/services.
+            # service_affinity: req = first peer's value, or
+            # unconstrained when its node lacks the label)
+            req = t.sa_refine_rows[:, m]  # (R,)
+            sa_mask = np.all(
+                (req[:, None] < 0)
+                | (t.sa_refine_rows == req[:, None]),
+                axis=0,
+            )
+            fit = fit & sa_mask
+        if j[m] >= J:
+            n_done = step + 1  # table horizon reached: bail after commit
+            break
+        fit[m] = t.fit_static[m] & t.res_fit[j[m], m]
+        if sa_mask is not None:
+            fit[m] &= sa_mask[m]
+    return ReplayResult(
+        chosen=chosen[:n_done],
+        counts=j,
+        n_done=n_done,
+        last_node_index=L,
+        scheduled=int(j.sum()),
+    )
+
+
+# -- C engine (native/replay.c) ----------------------------------------------
+
+_LIB = None
+_LIB_FAILED = False
+
+
+def _load_lib():
+    global _LIB, _LIB_FAILED
+    if _LIB is None and not _LIB_FAILED:
+        # Build on demand (cached by mtime): the driver environment runs
+        # bench/tests with no manual `make` step, and the Python fallback
+        # is ~10x slower — the fast path must be self-provisioning.
+        from kubernetes_tpu_torch.native.build import ensure_replay
+
+        path = ensure_replay()
+        if path is None:
+            _LIB_FAILED = True
+            return None
+        try:
+            lib = ctypes.CDLL(path)
+        except OSError:
+            _LIB_FAILED = True
+            return None
+        lib.replay_run.restype = ctypes.c_int64
+        lib.replay_run.argtypes = (
+            [ctypes.c_int32, ctypes.c_int32, ctypes.c_int64, ctypes.c_int64]
+            + [ctypes.c_void_p] * 4
+            + [ctypes.c_int32, ctypes.c_int32, ctypes.c_int32, ctypes.c_void_p]
+            + [ctypes.c_int32, ctypes.c_void_p] * 3
+            + [ctypes.c_int64, ctypes.c_int64]
+            + [ctypes.c_void_p] * 3
+        )
+        _LIB = lib
+    return _LIB
+
+
+def _ptr(a):
+    return None if a is None else a.ctypes.data_as(ctypes.c_void_p)
+
+
+def replay_fast(t: RunTables, K: int, last_node_index: int) -> ReplayResult:
+    """C replay (O(log N) per pick); degrades to replay_spec when the
+    shared library is absent or the engine bails on pathological score
+    dynamics. Differentially tested against replay_spec."""
+    lib = _load_lib()
+    if lib is None:
+        return replay_spec(t, K, last_node_index)
+    if (t.zone_id is not None and t.has_selectors) or t.w_saa \
+            or t.sa_refine_rows is not None:
+        # zone-blended spread / ServiceAntiAffinity / the ServiceAffinity
+        # first-pick pin couple nodes per commit in ways the C engine's
+        # incremental buckets don't model (yet) — the vectorized spec
+        # replay still beats a per-pod scan by far
+        return replay_spec(t, K, last_node_index)
+    J, N = t.res_fit.shape
+    fs = np.ascontiguousarray(t.fit_static, np.uint8)
+    rf = np.ascontiguousarray(t.res_fit, np.uint8)
+    tab = np.ascontiguousarray(t.tab, np.int64)
+    sa = np.ascontiguousarray(t.static_add, np.int64)
+    sb = (None if t.spread_base is None
+          else np.ascontiguousarray(t.spread_base, np.int64))
+    na = (None if t.na_counts is None
+          else np.ascontiguousarray(t.na_counts, np.int64))
+    tt = (None if t.tt_counts is None
+          else np.ascontiguousarray(t.tt_counts, np.int64))
+    ip = (None if t.ip_totals is None
+          else np.ascontiguousarray(t.ip_totals, np.int64))
+    R = int(tab.max(initial=0)) + int(sa.max(initial=0)) + 10 * (
+        t.w_spread + t.w_na + t.w_tt + t.w_ip
+    ) + 1
+    R = max(R, 1)
+    # generous: typical dynamics rebuild ~K/N times (spread fill levels)
+    # plus once per node exit; beyond that the spec replay is safer
+    rebuild_cap = 256 + 4 * N + K // 4
+    chosen = np.full(K, -1, np.int32)
+    counts = np.zeros(N, np.int64)
+    state = np.zeros(5, np.int64)
+    rc = lib.replay_run(
+        N, J, K, int(last_node_index),
+        _ptr(fs), _ptr(rf), _ptr(tab), _ptr(sa),
+        t.w_spread, int(t.has_selectors), int(t.spread_selfmatch), _ptr(sb),
+        t.w_na, _ptr(na), t.w_tt, _ptr(tt), t.w_ip, _ptr(ip),
+        R, rebuild_cap, _ptr(chosen), _ptr(counts), _ptr(state),
+    )
+    status = int(state[4])
+    if rc != 0 or status >= 2:
+        return replay_spec(t, K, last_node_index)
+    n_done = K if status == 0 else int(state[0])
+    return ReplayResult(
+        chosen=chosen[:n_done],
+        counts=counts,
+        n_done=n_done,
+        last_node_index=int(state[1]),
+        scheduled=int(state[2]),
+    )

@@ -1,0 +1,9 @@
+"""Predicate masks, priority scores and host selection on tensors.
+
+The PyTorch counterparts of kubernetes_tpu/ops: the same function names,
+one pending pod against all N nodes at once, on whatever device the
+tensors lie. Integer tables are int64 (bitsets widened from uint32), so
+the arithmetic is the reference's int64/float64 arithmetic; every
+promotion is explicit. probe_kernel.py wraps the hand-written CUDA
+kernel of the wave probe's resource sweep.
+"""

@@ -1,0 +1,159 @@
+"""The wave probe's resource sweep: the CUDA kernel and its plain version.
+
+Replaces kubernetes_tpu/ops/pallas_probe.py (the Pallas `_kernel`,
+launched by `resource_probe`). For a run of J identical pods over N
+nodes it returns the fit frontier (i64[N], the number of commit depths
+j at which PodFitsResources still holds) and the weighted
+LeastRequested + BalancedAllocation j-table (i64[J, N]).
+
+- resource_probe: the wrapper. On CUDA tensors it launches the kernel
+  of csrc/probe_kernel.cu (built with nvcc for sm_90a on first use, see
+  native/build.py) or raises; it never falls back. On CPU tensors, and
+  only there, it runs resource_probe_plain.
+- resource_probe_plain: the same function in plain torch ops, built from
+  the scan's own predicate and priority functions. The CPU tests hold it
+  against the JAX kernel; chip_smoke.py holds the kernel against it.
+- LAUNCHES counts kernel launches (incremented only where the kernel is
+  launched), so a run can show that it went through the kernel.
+
+Bound on the card: bytes (J*N*8 written, ~10*N*8 read); see the kernel
+source for the design and the bit-identity hazards.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Sequence, Tuple
+
+import torch
+
+from kubernetes_tpu_torch.ops import predicates as P
+from kubernetes_tpu_torch.ops import priorities as R
+
+I64 = torch.int64
+
+#: pod scalar vector layout (one i64[9] device buffer feeds the kernel)
+POD_SCALARS = (
+    "req_mcpu", "req_mem", "req_gpu", "zero_req",
+    "commit_mcpu", "commit_mem", "commit_gpu", "nz_mcpu", "nz_mem",
+)
+
+#: kernel launches since the last reset (set to 0 to reset)
+LAUNCHES = 0
+
+_LIB = None
+
+
+def pod_vector(pod) -> torch.Tensor:
+    """The pod's nine scalars as one i64[9] tensor on their device."""
+    return torch.stack([pod[f].to(I64) for f in POD_SCALARS])
+
+
+def term_weights(terms: Sequence[Tuple[str, int]]) -> Tuple[int, int]:
+    """(("lr"|"ba", weight), ...) -> (summed LR weight, summed BA
+    weight): in int64 the weighted sum is exact in any order."""
+    w_lr = sum(int(w) for kind, w in terms if kind == "lr")
+    w_ba = sum(int(w) for kind, w in terms if kind == "ba")
+    return w_lr, w_ba
+
+
+def resource_probe_plain(J: int, alloc, usage, pod, terms, *,
+                         wants_res: bool = True):
+    """-> (frontier i64[N], tab i64[J, N]) in plain torch ops."""
+    a_cpu, a_mem, a_gpu, a_pods = alloc
+    u_cpu, u_mem, u_gpu, u_nzc, u_nzm, u_cnt = usage
+    pv = pod_vector(pod)
+    w_lr, w_ba = term_weights(terms)
+    j = torch.arange(J, dtype=I64, device=a_cpu.device)[:, None]
+    if wants_res:
+        res_fit = P.pod_fits_resources(
+            pv[0], pv[1], pv[2], pv[3] != 0, a_cpu, a_mem, a_gpu, a_pods,
+            u_cpu[None, :] + j * pv[4],
+            u_mem[None, :] + j * pv[5],
+            u_gpu[None, :] + j * pv[6],
+            u_cnt[None, :] + j,
+        )
+        frontier = res_fit.sum(dim=0, dtype=I64)
+    else:
+        frontier = torch.full(a_cpu.shape, J, dtype=I64, device=a_cpu.device)
+    nzj_cpu = u_nzc[None, :] + j * pv[7]
+    nzj_mem = u_nzm[None, :] + j * pv[8]
+    lr = R.least_requested(pv[7], pv[8], nzj_cpu, nzj_mem, a_cpu, a_mem)
+    ba = R.balanced_resource_allocation(pv[7], pv[8], nzj_cpu, nzj_mem,
+                                        a_cpu, a_mem)
+    return frontier, w_lr * lr + w_ba * ba
+
+
+def _lib():
+    global _LIB
+    if _LIB is None:
+        from kubernetes_tpu_torch.native.build import build_cuda
+
+        lib = ctypes.CDLL(build_cuda("probe_kernel"))
+        fn = lib.resource_probe_launch
+        fn.restype = ctypes.c_int
+        fn.argtypes = ([ctypes.c_void_p] * 13
+                       + [ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
+                          ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p])
+        _LIB = lib
+    return _LIB
+
+
+def build() -> None:
+    """Build and load the kernel library now (it is otherwise built at
+    the first launch)."""
+    _lib()
+
+
+def _check(name: str, t: torch.Tensor, shape, device) -> None:
+    if t.device != device or t.dtype != I64 or tuple(t.shape) != shape \
+            or not t.is_contiguous():
+        raise ValueError(
+            f"resource_probe: {name} must be a contiguous int64 tensor of "
+            f"shape {shape} on {device}, got {t.dtype} {tuple(t.shape)} on "
+            f"{t.device}")
+
+
+def _launch(J: int, alloc, usage, pv, w_lr: int, w_ba: int,
+            wants_res: bool):
+    global LAUNCHES
+    device = pv.device
+    N = alloc[0].shape[0]
+    _check("pod vector", pv, (len(POD_SCALARS),), device)
+    for i, t in enumerate(tuple(alloc) + tuple(usage)):
+        _check(f"node table {i}", t, (N,), device)
+    frontier = torch.empty((N,), dtype=I64, device=device)
+    tab = torch.empty((J, N), dtype=I64, device=device)
+    lib = _lib()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = lib.resource_probe_launch(
+            pv.data_ptr(), *(t.data_ptr() for t in alloc),
+            *(t.data_ptr() for t in usage), frontier.data_ptr(),
+            tab.data_ptr(), int(J), int(N), int(w_lr), int(w_ba),
+            int(bool(wants_res)), stream)
+    if err != 0:
+        raise RuntimeError(f"resource_probe kernel launch failed: CUDA "
+                           f"error {err}")
+    LAUNCHES += 1
+    return frontier, tab
+
+
+def resource_probe(J: int, alloc, usage, pod, terms, *,
+                   wants_res: bool = True):
+    """-> (frontier i64[N], tab i64[J, N]) for a run-of-identical probe.
+
+    alloc: (alloc_mcpu, alloc_mem, alloc_gpu, alloc_pods) node tables;
+    usage: the carry's (req_mcpu, req_mem, req_gpu, nz_mcpu, nz_mem,
+    pod_count) resource rows; pod: the pod dict (the POD_SCALARS are
+    read); terms: (("lr"|"ba", weight), ...), the config's LR/BA
+    priorities. CUDA tensors launch the kernel; CPU tensors run the plain
+    version; any other device raises."""
+    device = alloc[0].device
+    if device.type == "cpu":
+        return resource_probe_plain(J, alloc, usage, pod, terms,
+                                    wants_res=wants_res)
+    if device.type != "cuda":
+        raise ValueError(f"resource_probe: no kernel for device {device}")
+    w_lr, w_ba = term_weights(terms)
+    return _launch(J, alloc, usage, pod_vector(pod), w_lr, w_ba, wants_res)
