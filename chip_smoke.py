@@ -1,21 +1,27 @@
 """Drive the PyTorch/CUDA port on one NVIDIA GPU and check it end to end.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--baseline OLD.cu]
 
 Phases, each printing one JSON line; any failure raises and exits
 non-zero:
   1. device: the card's name, and its name and power limit as nvidia-smi
      reports them;
   2. build: the probe kernel (csrc/probe_kernel.cu) built with nvcc for
-     sm_90a from the sources in this checkout;
+     sm_90a from the sources in this checkout, with ptxas's registers,
+     spills and shared memory for it;
   3. kernel vs plain: ops/probe_kernel.resource_probe on the card against
      its plain torch version, exact equality, at the main path's shapes
-     and on edge inputs, with CUDA-event times and the byte bound;
+     and on edge inputs (scenarios.PROBE_CASES), with profiler device
+     times, the byte bound and the share of it reached, and the grid;
+     with --baseline, also the probe kernel built from OLD.cu (a source
+     with the same C interface, e.g. an earlier version of the kernel)
+     against this checkout's, device times taken in turns (old, new,
+     new, old) on every case;
   4. main path: the scheduler_perf density shape at the north-star size
      (5,000 nodes of 4 CPU / 32Gi / 110 pods, 50,000 pause pods of
      100m / 500Mi) through TorchScheduleAlgorithm on the card; every pod
      placed, 10 per node, names equal to the same call on the CPU, and
-     the probe kernel launched;
+     the probe kernel launched (its launches counted by (J, N));
   5. mixed backlog: ~1,000 heterogeneous nodes and a backlog of RC
      template runs, short runs and singletons, equal to the port's copy
      of the serial oracle;
@@ -29,6 +35,7 @@ the port's package is not beside this script.
 
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import statistics
@@ -89,27 +96,32 @@ def cuda_ms(fn, reps=21, inner=10) -> float:
     return statistics.median(times)
 
 
-def kernel_device_ms(fn, name, n=20):
-    """Mean device time of the kernel `name` over n calls of fn, from the
-    profiler's CUPTI trace; raises when the trace shows no device time
-    for it."""
+def kernel_device_ms(fn, name, n=20, tries=3):
+    """-> (mean device time of the kernel `name` per launch, summed device
+    time of every kernel per call of fn), in ms, over n calls of fn, from
+    the profiler's CUPTI trace. A trace that shows no device time for
+    `name` is taken again, up to `tries` traces in all (one of some fifty
+    traces in a run has come back empty); then it raises."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    total_us, count = 0.0, 0
-    for ev in prof.key_averages():
-        if name in ev.key:
-            total_us += getattr(ev, "device_time_total", 0.0)
-            count += ev.count
-    if not (count and total_us):
-        raise RuntimeError(f"the profiler trace shows no device time for "
-                           f"{name}")
-    return total_us / count / 1e3
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        total_us, count, all_us = 0.0, 0, 0.0
+        for ev in prof.key_averages():
+            us = getattr(ev, "device_time_total", 0.0)
+            all_us += us
+            if name in ev.key:
+                total_us += us
+                count += ev.count
+        if count and total_us:
+            return total_us / count / 1e3, all_us / n / 1e3
+    raise RuntimeError(f"{tries} profiler traces show no device time for "
+                       f"{name}")
 
 
 def device_busy_ms(fn):
@@ -141,14 +153,39 @@ def probe_bound_ms(J, N) -> tuple:
                                        else "operations")
 
 
+def probe_case_inputs(S, seed, case):
+    """-> (J, N, alloc, usage, pod, wants_res) of one PROBE_CASES entry
+    on the card."""
+    label, J, N, opts = case
+    opts = dict(opts)
+    wants_res = opts.pop("wants_res", True)
+    alloc, usage, pod = probe_inputs(S, N, seed, **opts)
+    return J, N, alloc, usage, pod, wants_res
+
+
+def max_abs_err(PK, inputs, lib=None) -> int:
+    """Largest |kernel - plain| over the frontier and the tab of one
+    probe case, the kernel launched from lib (this checkout's by
+    default)."""
+    J, N, alloc, usage, pod, wants_res = inputs
+    fr_k, tab_k = PK._launch(J, alloc, usage, PK.pod_vector(pod), 1, 1,
+                             wants_res, lib=lib)
+    fr_p, tab_p = PK.resource_probe_plain(J, alloc, usage, pod,
+                                          (("lr", 1), ("ba", 1)),
+                                          wants_res=wants_res)
+    torch.cuda.synchronize()
+    return max(int((fr_k - fr_p).abs().max()),
+               int((tab_k - tab_p).abs().max()))
+
+
 def phase_kernel(PK, S):
     terms = (("lr", 1), ("ba", 1))
     results = {}
     max_err = 0
-    for seed, (label, J, N, opts) in enumerate(S.PROBE_CASES):
-        opts = dict(opts)
-        wants_res = opts.pop("wants_res", True)
-        alloc, usage, pod = probe_inputs(S, N, seed, **opts)
+    for seed, case in enumerate(S.PROBE_CASES):
+        label = case[0]
+        inputs = probe_case_inputs(S, seed, case)
+        J, N, alloc, usage, pod, wants_res = inputs
         fr_k, tab_k = PK.resource_probe(J, alloc, usage, pod, terms,
                                         wants_res=wants_res)
         fr_p, tab_p = PK.resource_probe_plain(J, alloc, usage, pod, terms,
@@ -163,22 +200,61 @@ def phase_kernel(PK, S):
         def launch():
             PK._launch(J, alloc, usage, pv, 1, 1, wants_res)
 
-        # ms: the kernel's device time (profiler); call_ms: the time of
-        # one launch through the wrapper back to back (CUDA events),
-        # which at these sizes is the host's launch rate
-        ms = kernel_device_ms(launch, "resource_probe_kernel")
+        # ms: the kernel's device time (profiler); call_device_ms: the
+        # device time of every kernel of one wrapper call (the zero fill
+        # of the frontier and the kernel); call_ms: the time of one
+        # launch through the wrapper back to back (CUDA events), which
+        # at these sizes is the host's launch rate
+        ms, call_device_ms = kernel_device_ms(launch,
+                                              "resource_probe_kernel")
         call_ms = cuda_ms(launch)
         plain_ms = cuda_ms(lambda: PK.resource_probe_plain(
             J, alloc, usage, pod, terms, wants_res=wants_res))
         bound_ms, bound_by = probe_bound_ms(J, N)
-        results.setdefault((J, N),
-                           (ms, call_ms, plain_ms, bound_ms, bound_by))
+        row = dict(ms=ms, call_device_ms=call_device_ms, call_ms=call_ms,
+                   plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                   bound_share=bound_ms / ms, **PK.launch_grid(J, N))
+        results.setdefault((J, N), row)
         emit("kernel_vs_plain", case=label, J=J, N=N, equal=equal,
-             max_abs_err=err, ms=ms, call_ms=call_ms, plain_ms=plain_ms,
-             bound_ms=bound_ms, bound_by=bound_by, library_call="none")
+             max_abs_err=err, library_call="none", **row)
         if not equal:
             raise AssertionError(f"probe kernel != plain on {label}")
     return results, max_err
+
+
+def phase_baseline(PK, S, baseline_src):
+    """The kernel built from baseline_src against this checkout's, on
+    every probe case: device times (profiler) in turns old, new, new,
+    old, and each one's max_abs_err against the plain version."""
+    from kubernetes_tpu_torch.native.build import (
+        build_cuda_file, ptxas_report,
+    )
+
+    path = build_cuda_file(os.path.abspath(baseline_src),
+                           "probe_kernel_baseline")
+    libs = {"old": PK.load(path), "new": PK._lib()}
+    emit("baseline_build", source=baseline_src,
+         ptxas=ptxas_report(path, "resource_probe_kernel"))
+    for seed, case in enumerate(S.PROBE_CASES):
+        inputs = probe_case_inputs(S, seed, case)
+        J, N, alloc, usage, pod, wants_res = inputs
+        pv = PK.pod_vector(pod)
+        times = {"old": [], "new": []}
+        for which in ("old", "new", "new", "old"):
+            times[which].append(kernel_device_ms(
+                lambda: PK._launch(J, alloc, usage, pv, 1, 1, wants_res,
+                                   lib=libs[which]),
+                "resource_probe_kernel")[0])
+        bound_ms, bound_by = probe_bound_ms(J, N)
+        old_ms = statistics.mean(times["old"])
+        new_ms = statistics.mean(times["new"])
+        emit("kernel_ab", case=case[0], J=J, N=N, old_ms=times["old"],
+             new_ms=times["new"], speedup=old_ms / new_ms,
+             bound_ms=bound_ms, bound_by=bound_by,
+             old_bound_share=bound_ms / old_ms,
+             new_bound_share=bound_ms / new_ms,
+             old_max_abs_err=max_abs_err(PK, inputs, libs["old"]),
+             new_max_abs_err=max_abs_err(PK, inputs, libs["new"]))
 
 
 # -- phases 4 and 5: the scheduler -------------------------------------------
@@ -197,12 +273,14 @@ def phase_main_path(PK, T, ClusterState, TorchScheduleAlgorithm, S):
     cold_wall = time.perf_counter() - t0
     algo = TorchScheduleAlgorithm(device="cuda")
     PK.LAUNCHES = 0
+    PK.LAUNCHES_BY_SHAPE.clear()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     names = algo.schedule_backlog(pods, state)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = PK.LAUNCHES
+    by_shape = shapes(PK.LAUNCHES_BY_SHAPE)
     tally = dict(algo._wave.dispatches)
     if any(n is None for n in names):
         raise AssertionError("main path left pods unplaced")
@@ -229,9 +307,9 @@ def phase_main_path(PK, T, ClusterState, TorchScheduleAlgorithm, S):
                             else 1.0 - busy_ms / 1e3 / traced_wall),
          pods_per_s=n_pods / wall, probes=tally.get("probe", 0),
          scans=tally.get("scan", 0), scan_pods=tally.get("scan_pods", 0),
-         kernel_launches=launches, cpu_wall_s=cpu_wall,
-         equal_to_cpu=True, pods_per_node=10)
-    return launches
+         kernel_launches=launches, launches_by_shape=by_shape,
+         cpu_wall_s=cpu_wall, equal_to_cpu=True, pods_per_node=10)
+    return launches, by_shape
 
 
 def phase_mixed(PK, T, ClusterState, GenericScheduler,
@@ -241,11 +319,13 @@ def phase_mixed(PK, T, ClusterState, GenericScheduler,
     state = ClusterState.build(nodes, services=services)
     algo = TorchScheduleAlgorithm(device="cuda")
     PK.LAUNCHES = 0
+    PK.LAUNCHES_BY_SHAPE.clear()
     t0 = time.perf_counter()
     names = algo.schedule_backlog(pods, state)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = PK.LAUNCHES
+    by_shape = shapes(PK.LAUNCHES_BY_SHAPE)
     if launches <= 0:
         raise AssertionError("mixed backlog never launched the probe kernel")
     t1 = time.perf_counter()
@@ -260,18 +340,30 @@ def phase_mixed(PK, T, ClusterState, GenericScheduler,
     emit("mixed_backlog", nodes=len(nodes), pods=len(pods), wall_s=wall,
          oracle_s=oracle_wall, probes=tally.get("probe", 0),
          scans=tally.get("scan", 0), scan_pods=tally.get("scan_pods", 0),
-         kernel_launches=launches, unscheduled=want.count(None),
-         equal_to_oracle=True)
-    return launches
+         kernel_launches=launches, launches_by_shape=by_shape,
+         unscheduled=want.count(None), equal_to_oracle=True)
+    return launches, by_shape
+
+
+def shapes(by_shape: dict) -> list:
+    """{(J, N): launches} -> [{"J", "N", "launches"}, ...] in order."""
+    return [{"J": J, "N": N, "launches": k}
+            for (J, N), k in sorted(by_shape.items())]
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--baseline", metavar="OLD.cu",
+                    help="also time the probe kernel built from this "
+                    "source against this checkout's")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
     from kubernetes_tpu_torch.api import types as T
     from kubernetes_tpu_torch.harness import scenarios as S
     from kubernetes_tpu_torch.models import replay
+    from kubernetes_tpu_torch.native.build import ptxas_report
     from kubernetes_tpu_torch.oracle import ClusterState, GenericScheduler
     from kubernetes_tpu_torch.ops import probe_kernel as PK
     from kubernetes_tpu_torch.scheduler.algorithm import (
@@ -285,17 +377,21 @@ def main() -> int:
          cuda=torch.version.cuda)
 
     t0 = time.perf_counter()
-    PK.build()
+    lib = PK.build()
     emit("build", kernel="resource_probe", seconds=time.perf_counter() - t0,
+         ptxas=ptxas_report(lib, "resource_probe_kernel"),
          c_replay=replay._load_lib() is not None)
 
     times, max_err = phase_kernel(PK, S)
-    launches = phase_main_path(PK, T, ClusterState, TorchScheduleAlgorithm, S)
-    mixed_launches = phase_mixed(PK, T, ClusterState, GenericScheduler,
-                                 TorchScheduleAlgorithm, S)
+    if args.baseline:
+        phase_baseline(PK, S, args.baseline)
+    launches, density_shapes = phase_main_path(
+        PK, T, ClusterState, TorchScheduleAlgorithm, S)
+    mixed_launches, mixed_shapes = phase_mixed(
+        PK, T, ClusterState, GenericScheduler, TorchScheduleAlgorithm, S)
 
     # the main path probes J=128 over the 5,000 nodes padded to 8,192
-    ms, call_ms, plain_ms, bound_ms, bound_by = times[(128, 8192)]
+    k1 = times[(128, 8192)]
     print(json.dumps({"kernels": [{
         "name": "resource_probe",
         "route": "cuda",
@@ -303,13 +399,20 @@ def main() -> int:
         "replaces": "kubernetes_tpu/ops/pallas_probe.py:63",
         "launches": launches,
         "launches_by_path": {"density": launches, "mixed": mixed_launches},
+        "launches_by_shape": {"density": density_shapes,
+                              "mixed": mixed_shapes},
         "max_abs_err": max_err,
         "matches_plain": True,
-        "ms": ms,
-        "call_ms": call_ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": bound_by,
+        "ms": k1["ms"],
+        "call_device_ms": k1["call_device_ms"],
+        "call_ms": k1["call_ms"],
+        "plain_ms": k1["plain_ms"],
+        "bound_ms": k1["bound_ms"],
+        "bound_by": k1["bound_by"],
+        "bound_share": k1["bound_share"],
+        "grid": k1["grid"],
+        "block": k1["block"],
+        "j_chunk": k1["j_chunk"],
         "library_ms": None,
     }]}), flush=True)
     print(smi, flush=True)

@@ -215,8 +215,16 @@ def mixed_backlog(T, scale=1, seed=0):
     return backlog
 
 
+#: (cap / 10) of the LR quotient boundary case: small, typical, 2^40-
+#: scale and up to the largest multiple of 10 under 2^59 (the top of the
+#: kernel's division-free range)
+LR_BOUND_TENTHS = (1, 7, 400, 3_276_800, 2**30 + 3, 2**36, 2**52 + 1,
+                   2**55 + 12_345, (2**59 - 1) // 10)
+
+
 def probe_case(N, seed, *, alloc_zero=False, zero_req=False,
-               integer_ba=False):
+               integer_ba=False, lr_bounds=False, big_mem=False,
+               zero_commit=False, huge_cap=False):
     """-> (alloc, usage, pod): numpy inputs of one probe resource sweep
     (ops/probe_kernel.resource_probe): alloc = (alloc_mcpu, alloc_mem,
     alloc_gpu, alloc_pods) i64[N]; usage = the carry's (req_mcpu,
@@ -226,7 +234,19 @@ def probe_case(N, seed, *, alloc_zero=False, zero_req=False,
     fits); zero_req makes a zero-request pod (it skips cpu/mem/gpu but not
     the pod count); integer_ba puts the cpu and mem fractions on
     multiples of 0.01, so 10 - 10*|diff| often lands on an integer and a
-    fused multiply-add or a wrong truncation would move it by one."""
+    fused multiply-add or a wrong truncation would move it by one.
+
+    lr_bounds puts LeastRequested's quotient (cap - total)*10 / cap on
+    its boundaries: for node n, each of cpu and mem has cap = 10*m (m from
+    LR_BOUND_TENTHS) and a target k in 0..10, and the totals step by 1
+    per depth from a start that makes some j give (cap - total)*10 ==
+    k*cap and the next j k*cap - 10, the largest numerator below it (the
+    numerator is always a multiple of 10); for k == 0 the next j has
+    total > cap. big_mem puts memory capacities at 2^40-2^42 bytes.
+    zero_commit gives a zero commit vector and room for any pod count, so
+    each node's frontier is 0 or J (a third of the nodes lack cpu room).
+    huge_cap puts some cpu and mem capacities above 2^59, where
+    (cap - total)*10 wraps in int64 as it does in the reference."""
     import numpy as np
 
     rng = np.random.default_rng(seed)
@@ -255,6 +275,31 @@ def probe_case(N, seed, *, alloc_zero=False, zero_req=False,
         u_nzc = 10 * rng.integers(0, 50, N)
         u_nzm = 10 * rng.integers(0, 50, N)
         pod.update(nz_mcpu=10, nz_mem=20)
+    if lr_bounds:
+        # every (cap, k) pair for cpu, and for mem, within 99 nodes
+        tenths = np.asarray(LR_BOUND_TENTHS, np.int64)
+        n = np.arange(N)
+        a_cpu = 10 * tenths[n % len(tenths)]
+        a_mem = 10 * tenths[(n + 3) % len(tenths)]
+        period = n // len(tenths)
+        u_nzc = _lr_bound_usage(rng, a_cpu, period % 11)
+        u_nzm = _lr_bound_usage(rng, a_mem, (period + 5) % 11)
+        u_cpu = (a_cpu * rng.random(N) * 0.9).astype(np.int64)
+        u_mem = (a_mem * rng.random(N) * 0.9).astype(np.int64)
+        pod.update(nz_mcpu=1, nz_mem=1)
+    if big_mem:
+        a_mem = rng.choice([1, 2, 4], N) * 2**40
+        u_mem = (a_mem * rng.random(N) * 0.9).astype(np.int64)
+        u_nzm = u_mem + 200 * 2**20 * rng.integers(0, 3, N)
+        pod.update(req_mem=64 * 2**30, commit_mem=64 * 2**30,
+                   nz_mem=64 * 2**30)
+    if zero_commit:
+        a_pods = np.full(N, 10**6)
+        u_cpu[::3] = a_cpu[::3] - 50
+        pod.update(commit_mcpu=0, commit_mem=0, commit_gpu=0)
+    if huge_cap:
+        a_cpu[1::3] = 2**59 + 10 * rng.integers(1, 2**40, len(a_cpu[1::3]))
+        a_mem[::2] = 2**60 + rng.integers(0, 2**50, len(a_mem[::2]))
     alloc = tuple(np.asarray(a, np.int64) for a in (a_cpu, a_mem, a_gpu,
                                                     a_pods))
     usage = tuple(np.asarray(a, np.int64)
@@ -273,4 +318,21 @@ PROBE_CASES = (
     ("edge zero-request pod", 128, 1024, {"zero_req": True}),
     ("edge wants_res=False", 128, 1024, {"wants_res": False}),
     ("edge integer BA", 128, 1024, {"integer_ba": True}),
+    ("edge J=16", 16, 1024, {}),
+    ("edge J=200 N=1000", 200, 1000, {}),
+    ("edge LR quotient bounds", 128, 1024, {"lr_bounds": True}),
+    ("edge mem 2^40", 128, 1024, {"big_mem": True}),
+    ("edge zero commit", 128, 1024, {"zero_commit": True}),
+    ("edge cap > 2^59", 128, 1024, {"huge_cap": True}),
 )
+
+
+def _lr_bound_usage(rng, cap, k):
+    """Usage whose totals usage + (j+1) hit (cap - total)*10 == k*cap at
+    some depth j < 15 (at j == 0 for k == 10, whose target total is 0, so
+    the usage is -1 there)."""
+    import numpy as np
+
+    target = cap * (10 - k) // 10
+    j = np.minimum(rng.integers(0, 15, len(cap)), np.maximum(target - 1, 0))
+    return target - 1 - j

@@ -14,10 +14,14 @@ LeastRequested + BalancedAllocation j-table (i64[J, N]).
   the scan's own predicate and priority functions. The CPU tests hold it
   against the JAX kernel; chip_smoke.py holds the kernel against it.
 - LAUNCHES counts kernel launches (incremented only where the kernel is
-  launched), so a run can show that it went through the kernel.
+  launched), so a run can show that it went through the kernel;
+  LAUNCHES_BY_SHAPE counts them by (J, N). launch_grid(J, N) is the
+  grid the kernel takes at that shape.
 
-Bound on the card: bytes (J*N*8 written, ~10*N*8 read); see the kernel
-source for the design and the bit-identity hazards.
+Bound on the card: bytes (J*N*8 written, ~10*N*8 read). The kernel
+spreads the (j, n) plane over the grid and sums the frontier across
+blocks with integer atomics, so the wrapper hands it a zeroed frontier;
+see the kernel source for the design and the bit-identity hazards.
 """
 
 from __future__ import annotations
@@ -40,6 +44,8 @@ POD_SCALARS = (
 
 #: kernel launches since the last reset (set to 0 to reset)
 LAUNCHES = 0
+#: kernel launches by (J, N) since the last reset (clear() to reset)
+LAUNCHES_BY_SHAPE: dict = {}
 
 _LIB = None
 
@@ -84,25 +90,46 @@ def resource_probe_plain(J: int, alloc, usage, pod, terms, *,
     return frontier, w_lr * lr + w_ba * ba
 
 
+def load(path: str) -> ctypes.CDLL:
+    """Load a built probe kernel library and declare its C interface."""
+    lib = ctypes.CDLL(path)
+    fn = lib.resource_probe_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 13
+                   + [ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
+                      ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p])
+    return lib
+
+
 def _lib():
     global _LIB
     if _LIB is None:
-        from kubernetes_tpu_torch.native.build import build_cuda
-
-        lib = ctypes.CDLL(build_cuda("probe_kernel"))
-        fn = lib.resource_probe_launch
-        fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 13
-                       + [ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
-                          ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p])
-        _LIB = lib
+        _LIB = load(build())
     return _LIB
 
 
-def build() -> None:
-    """Build and load the kernel library now (it is otherwise built at
-    the first launch)."""
-    _lib()
+def build() -> str:
+    """Build the kernel library (unless built) -> its path. It is
+    otherwise built at the first launch."""
+    from kubernetes_tpu_torch.native.build import build_cuda
+
+    return build_cuda("probe_kernel")
+
+
+def launch_grid(J: int, N: int, device=None) -> dict:
+    """-> {"grid": [x, y], "block": [x, y], "j_chunk": c}: the launch
+    shape the kernel takes at (J, N) on the device (the current one by
+    default): x over node tiles, y over chunks of c depths."""
+    fn = _lib().resource_probe_grid
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    dims = (ctypes.c_int * 5)()
+    with torch.cuda.device(device):
+        err = fn(int(J), int(N), dims)
+    if err != 0:
+        raise RuntimeError(f"resource_probe_grid failed: CUDA error {err}")
+    return {"grid": [dims[0], dims[1]], "block": [dims[2], dims[3]],
+            "j_chunk": dims[4]}
 
 
 def _check(name: str, t: torch.Tensor, shape, device) -> None:
@@ -115,19 +142,21 @@ def _check(name: str, t: torch.Tensor, shape, device) -> None:
 
 
 def _launch(J: int, alloc, usage, pv, w_lr: int, w_ba: int,
-            wants_res: bool):
+            wants_res: bool, lib=None):
+    """Launch the kernel (of `lib`, a library from load(); this
+    checkout's by default)."""
     global LAUNCHES
     device = pv.device
     N = alloc[0].shape[0]
     _check("pod vector", pv, (len(POD_SCALARS),), device)
     for i, t in enumerate(tuple(alloc) + tuple(usage)):
         _check(f"node table {i}", t, (N,), device)
-    frontier = torch.empty((N,), dtype=I64, device=device)
+    # the kernel adds each block's fit count into the frontier
+    frontier = torch.zeros((N,), dtype=I64, device=device)
     tab = torch.empty((J, N), dtype=I64, device=device)
-    lib = _lib()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = lib.resource_probe_launch(
+        err = (lib or _lib()).resource_probe_launch(
             pv.data_ptr(), *(t.data_ptr() for t in alloc),
             *(t.data_ptr() for t in usage), frontier.data_ptr(),
             tab.data_ptr(), int(J), int(N), int(w_lr), int(w_ba),
@@ -136,6 +165,7 @@ def _launch(J: int, alloc, usage, pv, w_lr: int, w_ba: int,
         raise RuntimeError(f"resource_probe kernel launch failed: CUDA "
                            f"error {err}")
     LAUNCHES += 1
+    LAUNCHES_BY_SHAPE[(J, N)] = LAUNCHES_BY_SHAPE.get((J, N), 0) + 1
     return frontier, tab
 
 

@@ -42,13 +42,30 @@ def test_kernel_matches_plain_on_card(case, cuda_device):
     alloc, usage = tuple(map(put, alloc)), tuple(map(put, usage))
     pod = {k: put(v) for k, v in pod.items()}
     launches = PK.LAUNCHES
+    by_shape = PK.LAUNCHES_BY_SHAPE.get((J, N), 0)
     fr, tab = PK.resource_probe(J, alloc, usage, pod, TERMS,
                                 wants_res=wants_res)
     assert PK.LAUNCHES == launches + 1
+    assert PK.LAUNCHES_BY_SHAPE[(J, N)] == by_shape + 1
     fr_p, tab_p = PK.resource_probe_plain(J, alloc, usage, pod, TERMS,
                                           wants_res=wants_res)
     torch.cuda.synchronize()
     assert torch.equal(fr, fr_p) and torch.equal(tab, tab_p), label
+
+
+def test_launch_grid_covers_the_plane(cuda_device):
+    """Node tiles cover N and j chunks cover J, each with less than one
+    tile or chunk to spare; a chunk is whole steps of the j lanes; the
+    main path's shapes give every SM a block at least."""
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    for _, J, N, _ in S.PROBE_CASES:
+        g = PK.launch_grid(J, N)
+        (gx, gy), (bx, by), chunk = g["grid"], g["block"], g["j_chunk"]
+        assert (gx - 1) * bx < N <= gx * bx, g
+        assert (gy - 1) * chunk < J <= gy * chunk, g
+        assert chunk % by == 0, g
+        if (J, N) in ((128, 8192), (1024, 1024)):
+            assert gx * gy >= sms, g
 
 
 def test_scheduler_on_card_matches_cpu_and_oracle(cuda_device):

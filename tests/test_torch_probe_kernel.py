@@ -34,9 +34,8 @@ from kubernetes_tpu_torch.snapshot.carry import to_device
 from tests.test_torch_ops import CPU, assert_same, encode, scenario
 
 TERMS = (("lr", 1), ("ba", 1))
-# the edge inputs and a main-path shape, at a CPU-friendly node count
-CASES = [(label, J, min(N, 256), opts)
-         for label, J, N, opts in S.PROBE_CASES if J == 128]
+# every kernel case, at a CPU-friendly node count
+CASES = [(label, J, min(N, 256), opts) for label, J, N, opts in S.PROBE_CASES]
 
 
 def _lax_probe(J, alloc, usage, pod, wants_res):
@@ -63,8 +62,33 @@ def _lax_probe(J, alloc, usage, pod, wants_res):
     return res_fit.sum(0, dtype=jnp.int64), tab
 
 
+def _mirror_probe(J, alloc, usage, pod, wants_res):
+    """The same sweep in the JAX package's numpy mirror
+    (models/hosttab), which rounds 10 - 10*|diff| twice, as the oracle
+    does."""
+    j = np.arange(J, dtype=np.int64)[:, None]
+    names = ("alloc_mcpu", "alloc_mem", "alloc_gpu", "alloc_pods")
+    if wants_res:
+        fit = JH.pod_fits_resources(pod, dict(zip(names, alloc)),
+                                    np.stack(usage), j)
+    else:
+        fit = np.ones((J, alloc[0].shape[0]), bool)
+    nzj_c = usage[3][None, :] + j * pod["nz_mcpu"]
+    nzj_m = usage[4][None, :] + j * pod["nz_mem"]
+    tab = sum(fn(pod["nz_mcpu"], pod["nz_mem"], nzj_c, nzj_m, alloc[0],
+                 alloc[1])
+              for fn in (JH.least_requested,
+                         JH.balanced_resource_allocation))
+    return fit.sum(0, dtype=np.int64), tab
+
+
 @pytest.mark.parametrize("case", CASES, ids=[c[0] for c in CASES])
 def test_plain_matches_pallas_and_lax(case):
+    """Exactly the lax build and the numpy mirror. Exactly the Pallas
+    build in interpret mode wherever that build agrees with the mirror:
+    XLA:CPU can contract BalancedAllocation's 10 - diff*10 into a fused
+    multiply-add inside it (ROADMAP queue 3; seen on the LR quotient
+    bounds case), and there the Pallas build is one below the mirror."""
     label, J, N, opts = case
     opts = dict(opts)
     wants_res = opts.pop("wants_res", True)
@@ -75,6 +99,7 @@ def test_plain_matches_pallas_and_lax(case):
     fr_pl, tab_pl = JPL.resource_probe(J, jalloc, jusage, jpod, TERMS,
                                        wants_res=wants_res)
     fr_lax, tab_lax = _lax_probe(J, jalloc, jusage, jpod, wants_res)
+    fr_mir, tab_mir = _mirror_probe(J, alloc, usage, pod, wants_res)
     launches = PK.LAUNCHES
     fr, tab = PK.resource_probe(
         J, tuple(torch.from_numpy(a) for a in alloc),
@@ -82,9 +107,54 @@ def test_plain_matches_pallas_and_lax(case):
         {k: torch.tensor(v) for k, v in pod.items()}, TERMS,
         wants_res=wants_res)
     assert PK.LAUNCHES == launches  # CPU tensors take the plain version
-    for want_fr, want_tab in ((fr_pl, tab_pl), (fr_lax, tab_lax)):
+    for want_fr, want_tab in ((fr_lax, tab_lax), (fr_mir, tab_mir)):
         assert_same(want_fr, fr, label + " frontier")
         assert_same(want_tab, tab, label + " tab")
+    assert_same(fr_pl, fr, label + " Pallas frontier")
+    tab_pl = np.asarray(tab_pl)
+    agree = tab_pl == tab_mir
+    assert np.array_equal(tab_pl[agree], tab.numpy()[agree]), label
+    assert (tab_pl[~agree] == tab_mir[~agree] - 1).all(), label
+
+
+def _case(label):
+    opts = dict(next(c[3] for c in S.PROBE_CASES if c[0] == label))
+    opts.pop("wants_res", None)
+    return opts
+
+
+def test_lr_bound_case_hits_every_quotient_boundary():
+    """For every cap and k in 0..10, cpu and mem each reach a depth where
+    (cap - total)*10 == k*cap and one where it is k*cap - 10 (the next
+    multiple of 10 below); some totals pass their cap."""
+    alloc, usage, pod = S.probe_case(256, 1, **_case("edge LR quotient bounds"))
+    j = np.arange(16)[:, None]
+    for cap, nz, step in ((alloc[0], usage[3], pod["nz_mcpu"]),
+                          (alloc[1], usage[4], pod["nz_mem"])):
+        total = nz[None, :] + (j + 1) * step
+        num = (cap[None, :] - total) * 10
+        assert (total > cap).any() and (total >= 0).all()
+        for m in S.LR_BOUND_TENTHS:
+            mine = num[:, cap == 10 * m]
+            for k in range(11):
+                assert (mine == k * 10 * m).any(), (m, k)
+                assert (mine == k * 10 * m - 10).any(), (m, k)
+
+
+def test_edge_cases_reach_their_inputs():
+    J = 128
+    alloc, usage, pod = S.probe_case(256, 1, **_case("edge zero commit"))
+    fr, _ = PK.resource_probe(
+        J, tuple(torch.from_numpy(a) for a in alloc),
+        tuple(torch.from_numpy(a) for a in usage),
+        {k: torch.tensor(v) for k, v in pod.items()}, TERMS)
+    assert set(fr.tolist()) == {0, J}
+    alloc, _, _ = S.probe_case(256, 1, **_case("edge mem 2^40"))
+    assert alloc[1].min() >= 2**40
+    alloc, _, _ = S.probe_case(256, 1, **_case("edge cap > 2^59"))
+    assert (alloc[0] > 2**59).any() and (alloc[1] > 2**59).any()
+    assert any(N % 32 for _, _, N, _ in S.PROBE_CASES)
+    assert {16, 200} <= {J for _, J, _, _ in S.PROBE_CASES}
 
 
 def test_term_weights_sum_per_kind():
