@@ -6,28 +6,44 @@ Phases, each printing one JSON line; any failure raises and exits
 non-zero:
   1. device: the card's name, and its name and power limit as nvidia-smi
      reports them;
-  2. build: the probe kernel (csrc/probe_kernel.cu) built with nvcc for
-     sm_90a from the sources in this checkout, with ptxas's registers,
-     spills and shared memory for it;
-  3. kernel vs plain: ops/probe_kernel.resource_probe on the card against
-     its plain torch version, exact equality, at the main path's shapes
-     and on edge inputs (scenarios.PROBE_CASES), with profiler device
-     times, the byte bound and the share of it reached, and the grid;
-     with --baseline, also the probe kernel built from OLD.cu (a source
-     with the same C interface, e.g. an earlier version of the kernel)
-     against this checkout's, device times taken in turns (old, new,
-     new, old) on every case;
+  2. build: the CUDA kernels (csrc/probe_kernel.cu, K1; csrc/
+     zreplay_kernel.cu, K3) built with nvcc for sm_90a from the sources
+     in this checkout, in parallel, with ptxas's registers, spills and
+     shared memory for each;
+  3. kernel vs plain: ops/probe_kernel.resource_probe (K1) on the card
+     against its plain torch version, exact equality, at the main path's
+     shapes and on edge inputs (scenarios.PROBE_CASES, J=1 included),
+     with profiler device times, the byte bound and the share of it
+     reached, and the grid; with --baseline, also the probe kernel built
+     from OLD.cu (a source with the same C interface, e.g. an earlier
+     version of the kernel) against this checkout's, device times taken
+     in turns (old, new, new, old) on every case;
+  3b. K3 vs plain: ops/zreplay_kernel.replay_picks against
+     replay_picks_plain, exact equality of chosen, j and (L, n_done,
+     bailed), on scenarios.ZREPLAY_CASES, with profiler device times,
+     microseconds per pick, the plain version's time and the bound;
   4. main path: the scheduler_perf density shape at the north-star size
      (5,000 nodes of 4 CPU / 32Gi / 110 pods, 50,000 pause pods of
      100m / 500Mi) through TorchScheduleAlgorithm on the card; every pod
      placed, 10 per node, names equal to the same call on the CPU, and
      the probe kernel launched (its launches counted by (J, N));
+  4b. zoned density: the same shape over zones a/b/c with one Service
+     selecting every pod, so the run takes the zoned device replay (K1 +
+     K3); every pod placed, zreplay dispatches > 0, K1 and K3 launched,
+     and names equal to the same driver on the card with
+     replay=replay_spec (the host spec replay); both wall times;
+  4c. many templates: 5,000 unzoned nodes and 256 templates x 64 pods
+     with distinct requests, through the grouped header probe (K1 at
+     J=1); names equal to the same call on the CPU, group_probe >= 1;
   5. mixed backlog: ~1,000 heterogeneous nodes and a backlog of RC
      template runs, short runs and singletons, equal to the port's copy
-     of the serial oracle;
-  6. the kernels line, with the launch count of each path it drove;
+     of the serial oracle, with its dispatch tally;
+  6. the kernels line, with the launch counts of each path it drove;
      then nvidia-smi's line, then the result line
      {"ok": true, "device": {...}}.
+
+Each path's launch counts are set to 0 just before it and read just
+after; a path that does not launch each of its kernels fails.
 
 Exits non-zero, printing no result, when CUDA is not available or when
 the port's package is not beside this script.
@@ -42,15 +58,18 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
-#: NVIDIA H100 SXM data sheet: HBM3 rate and the float64 rate of the
-#: CUDA cores (the probe's float64 BalancedAllocation math)
+#: NVIDIA H100 SXM data sheet: HBM3 rate and the float64 and float32
+#: rates of the CUDA cores (the probe's float64 BalancedAllocation math,
+#: the pick loop's float32 SelectorSpread math)
 HBM_BYTES_PER_S = 3.35e12
 F64_FLOP_PER_S = 34e12
+F32_FLOP_PER_S = 67e12
 
 
 def emit(phase: str, **kw) -> None:
@@ -257,10 +276,78 @@ def phase_baseline(PK, S, baseline_src):
              new_max_abs_err=max_abs_err(PK, inputs, libs["new"]))
 
 
+# -- phase 3b: K3 against its plain version -----------------------------------
+
+
+def zreplay_bound_ms(N, K, steps) -> tuple:
+    """Least time for one run's pick loop: its inputs read once (eleven
+    i64 rows, the u8 fit row, the i32 zones, five scalars) and its outputs
+    written once (chosen i32[K], j i64[N], three i64) over the HBM rate;
+    the float32 SelectorSpread arithmetic (a division and four multiply
+    or add operations per node per step run) over the float32 rate.
+    -> (ms, "bytes" | "operations")."""
+    nbytes = N * (11 * 8 + 1 + 4) + 5 * 8 + K * 4 + N * 8 + 3 * 8
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = 5 * N * steps / F32_FLOP_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def zreplay_inputs(S, case, seed):
+    """One scenarios.ZREPLAY_CASES entry on the card: -> (label, N,
+    nodes, scalars, weights, kw)."""
+    label, N, K, opts = case
+    c = S.zreplay_case(N, seed, K=K, **opts)
+    nodes = {k: torch.from_numpy(v).cuda() for k, v in c["nodes"].items()}
+    veto = torch.from_numpy(c["veto"]).cuda()
+    nodes["frontier"] = torch.where(veto, nodes["frontier"].clamp(max=1),
+                                    nodes["frontier"])
+    sc = c["scalars"]
+    scalars = torch.tensor([sc["nz_mcpu"], sc["nz_mem"], sc["selfmatch"],
+                            sc["L0"], 1], device="cuda")
+    kw = {k: c[k] for k in ("K", "k_real", "rows_dyn", "num_zones",
+                            "has_selectors")}
+    return label, N, nodes, scalars, c["weights"], kw
+
+
+def phase_k3(ZK, S):
+    results = {}
+    max_err = 0
+    for seed, case in enumerate(S.ZREPLAY_CASES):
+        label, N, nodes, scalars, weights, kw = zreplay_inputs(S, case, seed)
+        got = ZK.replay_picks(nodes, scalars, weights, **kw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = ZK.replay_picks_plain(nodes, scalars, weights, **kw)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        equal = all(torch.equal(a, b) for a, b in zip(got, want))
+        err = max(int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
+                  for a, b in zip(got, want))
+        max_err = max(max_err, err)
+        picks = int((got[0] >= 0).sum())
+        ms, _ = kernel_device_ms(
+            lambda: ZK._launch(nodes, scalars, weights, **kw),
+            "zreplay_kernel", n=3 if kw["K"] > 8192 else 10)
+        bound_ms, bound_by = zreplay_bound_ms(N, kw["K"], picks)
+        row = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                   bound_by=bound_by, bound_share=bound_ms / ms,
+                   picks=picks, us_per_pick=ms * 1e3 / max(picks, 1),
+                   scratch_bytes=ZK.scratch_bytes(N, kw["num_zones"]))
+        results[label] = row
+        emit("k3_vs_plain", case=label, N=N, K=kw["K"],
+             k_real=kw["k_real"], num_zones=kw["num_zones"], equal=equal,
+             max_abs_err=err, state=got[2].tolist(), library_call="none",
+             **row)
+        if not equal:
+            raise AssertionError(f"K3 != plain on {label}")
+    return results, max_err
+
+
 # -- phases 4 and 5: the scheduler -------------------------------------------
 
 
-def phase_main_path(PK, T, ClusterState, TorchScheduleAlgorithm, S):
+def phase_main_path(PK, ZK, T, ClusterState, TorchScheduleAlgorithm, S):
     n_nodes, n_pods = 5000, 50000
     nodes = S.density_nodes(T, n_nodes)
     pods = S.pause_pods(T, n_pods)
@@ -272,8 +359,7 @@ def phase_main_path(PK, T, ClusterState, TorchScheduleAlgorithm, S):
     torch.cuda.synchronize()
     cold_wall = time.perf_counter() - t0
     algo = TorchScheduleAlgorithm(device="cuda")
-    PK.LAUNCHES = 0
-    PK.LAUNCHES_BY_SHAPE.clear()
+    reset(PK, ZK)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     names = algo.schedule_backlog(pods, state)
@@ -312,22 +398,135 @@ def phase_main_path(PK, T, ClusterState, TorchScheduleAlgorithm, S):
     return launches, by_shape
 
 
-def phase_mixed(PK, T, ClusterState, GenericScheduler,
+def reset(*kernels) -> None:
+    for K in kernels:
+        K.LAUNCHES = 0
+        K.LAUNCHES_BY_SHAPE.clear()
+
+
+def phase_zoned_density(PK, ZK, T, ClusterState, TorchScheduleAlgorithm, S,
+                        replay_spec, n_nodes=5000, n_pods=50000):
+    """The density shape over zones a/b/c, one Service selecting every
+    pod: the zoned device replay (K1 + K3) against the host spec replay
+    (replay=replay_spec) on the card."""
+    nodes = S.zoned_density_nodes(T, n_nodes)
+    pods = S.pause_pods(T, n_pods)
+    state = ClusterState.build(nodes, services=[
+        S.service(T, "svc", {"name": "sched-perf"})])
+    t0 = time.perf_counter()
+    TorchScheduleAlgorithm(device="cuda").schedule_backlog(pods, state)
+    torch.cuda.synchronize()
+    cold_wall = time.perf_counter() - t0
+    algo = TorchScheduleAlgorithm(device="cuda")
+    reset(PK, ZK)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    names = algo.schedule_backlog(pods, state)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k1, k3 = PK.LAUNCHES, ZK.LAUNCHES
+    k1_shapes, k3_shapes = shapes(PK.LAUNCHES_BY_SHAPE), k3_shapes_of(ZK)
+    tally = dict(algo._wave.dispatches)
+    if any(n is None for n in names):
+        raise AssertionError("zoned density left pods unplaced")
+    if tally.get("zreplay", 0) + tally.get("zreplay_group", 0) <= 0:
+        raise AssertionError(f"zoned density took no device replay: {tally}")
+    if k1 <= 0 or k3 <= 0:
+        raise AssertionError(f"zoned density launched K1 {k1}, K3 {k3} times")
+    spec = TorchScheduleAlgorithm(device="cuda", replay=replay_spec)
+    t1 = time.perf_counter()
+    spec_names = spec.schedule_backlog(pods, state)
+    torch.cuda.synchronize()
+    spec_wall = time.perf_counter() - t1
+    spec_tally = dict(spec._wave.dispatches)
+    if spec_names != names:
+        i = next(i for i, (a, b) in enumerate(zip(names, spec_names))
+                 if a != b)
+        raise AssertionError(f"zoned density: pod {i} went to {names[i]}, "
+                             f"the spec replay chose {spec_names[i]}")
+    per_zone = {}
+    zone_of = {n.metadata.name: n.metadata.labels.get(S.ZONE) for n in nodes}
+    for n in names:
+        per_zone[zone_of[n]] = per_zone.get(zone_of[n], 0) + 1
+    busy_ms, traced_wall = device_busy_ms(
+        lambda: TorchScheduleAlgorithm(device="cuda").schedule_backlog(
+            pods, state))
+    emit("zoned_density", nodes=n_nodes, pods=n_pods, wall_s=wall,
+         cold_wall_s=cold_wall, pods_per_s=n_pods / wall,
+         spec_replay_wall_s=spec_wall, spec_over_device=spec_wall / wall,
+         traced_wall_s=traced_wall, device_busy_ms=busy_ms,
+         device_idle_share=(None if busy_ms is None
+                            else 1.0 - busy_ms / 1e3 / traced_wall),
+         dispatches=tally, spec_dispatches=spec_tally, k1_launches=k1,
+         k1_launches_by_shape=k1_shapes, k3_launches=k3,
+         k3_launches_by_shape=k3_shapes, pods_per_zone=per_zone,
+         equal_to_spec_replay=True)
+    return k1, k1_shapes, k3, k3_shapes
+
+
+def phase_many_templates(PK, T, ClusterState, TorchScheduleAlgorithm, S,
+                         n_nodes=5000, templates=256, per=64):
+    """256 templates x 64 pods with distinct requests on 5,000 unzoned
+    nodes: the grouped header probe (K1 at J=1) and host replay, against
+    the same call on the CPU."""
+    nodes = S.density_nodes(T, n_nodes)
+    pods = S.template_pods(T, templates, per, cpu0=20, mem_step=40)
+    state = ClusterState.build(nodes)
+    algo = TorchScheduleAlgorithm(device="cuda")
+    reset(PK)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    names = algo.schedule_backlog(pods, state)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k1, k1_shapes = PK.LAUNCHES, shapes(PK.LAUNCHES_BY_SHAPE)
+    j1 = sum(k for (J, _N), k in PK.LAUNCHES_BY_SHAPE.items() if J == 1)
+    tally = dict(algo._wave.dispatches)
+    if tally.get("group_probe", 0) < 1 or j1 <= 0:
+        raise AssertionError(f"many templates took no grouped probe: {tally}")
+    t1 = time.perf_counter()
+    cpu_names = TorchScheduleAlgorithm(device="cpu").schedule_backlog(
+        pods, state)
+    cpu_wall = time.perf_counter() - t1
+    if cpu_names != names:
+        raise AssertionError("many templates: card and CPU runs differ")
+    emit("many_templates", nodes=n_nodes, templates=templates,
+         pods=len(pods),
+         wall_s=wall, pods_per_s=len(pods) / wall, cpu_wall_s=cpu_wall,
+         dispatches=tally, group_probes=tally.get("group_probe", 0),
+         probes=tally.get("probe", 0), k1_launches=k1,
+         k1_launches_at_j1=j1, k1_launches_by_shape=k1_shapes,
+         unscheduled=names.count(None), equal_to_cpu=True)
+    return k1, k1_shapes
+
+
+def k3_shapes_of(ZK) -> list:
+    """{(N, K, num_zones): launches} -> [{"N", "K", "num_zones",
+    "launches"}, ...] in order."""
+    return [{"N": N, "K": K, "num_zones": z, "launches": k}
+            for (N, K, z), k in sorted(ZK.LAUNCHES_BY_SHAPE.items())]
+
+
+def phase_mixed(PK, ZK, T, ClusterState, GenericScheduler,
                 TorchScheduleAlgorithm, S):
     nodes, services = S.mixed_cluster(T, 1000)
     pods = S.mixed_backlog(T, scale=2)
     state = ClusterState.build(nodes, services=services)
     algo = TorchScheduleAlgorithm(device="cuda")
-    PK.LAUNCHES = 0
-    PK.LAUNCHES_BY_SHAPE.clear()
+    reset(PK, ZK)
     t0 = time.perf_counter()
     names = algo.schedule_backlog(pods, state)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = PK.LAUNCHES
     by_shape = shapes(PK.LAUNCHES_BY_SHAPE)
+    k3, k3_shapes = ZK.LAUNCHES, k3_shapes_of(ZK)
+    tally = dict(algo._wave.dispatches)
     if launches <= 0:
         raise AssertionError("mixed backlog never launched the probe kernel")
+    if tally.get("zreplay", 0) + tally.get("zreplay_group", 0) and k3 <= 0:
+        raise AssertionError("mixed backlog's device replays never "
+                             "launched K3")
     t1 = time.perf_counter()
     want = GenericScheduler().schedule_backlog(pods, state.clone())
     oracle_wall = time.perf_counter() - t1
@@ -336,18 +535,21 @@ def phase_mixed(PK, T, ClusterState, GenericScheduler,
         raise AssertionError(
             f"mixed backlog: pod {i} ({pods[i].metadata.name}) went to "
             f"{names[i]}, the oracle chose {want[i]}")
-    tally = dict(algo._wave.dispatches)
     emit("mixed_backlog", nodes=len(nodes), pods=len(pods), wall_s=wall,
-         oracle_s=oracle_wall, probes=tally.get("probe", 0),
-         scans=tally.get("scan", 0), scan_pods=tally.get("scan_pods", 0),
-         kernel_launches=launches, launches_by_shape=by_shape,
-         unscheduled=want.count(None), equal_to_oracle=True)
-    return launches, by_shape
+         oracle_s=oracle_wall, dispatches=tally,
+         probes=tally.get("probe", 0), scans=tally.get("scan", 0),
+         scan_pods=tally.get("scan_pods", 0), kernel_launches=launches,
+         launches_by_shape=by_shape, k3_launches=k3,
+         k3_launches_by_shape=k3_shapes, unscheduled=want.count(None),
+         equal_to_oracle=True)
+    return launches, by_shape, k3, k3_shapes
 
 
 def shapes(by_shape: dict) -> list:
-    """{(J, N): launches} -> [{"J", "N", "launches"}, ...] in order."""
-    return [{"J": J, "N": N, "launches": k}
+    """K1's {(J, N): launches} -> [{"J", "N", "G", "launches"}, ...] in
+    order. K1 has no run axis: the grouped probe launches it once per run
+    (G = 1 each)."""
+    return [{"J": J, "N": N, "G": 1, "launches": k}
             for (J, N), k in sorted(by_shape.items())]
 
 
@@ -366,6 +568,7 @@ def main() -> int:
     from kubernetes_tpu_torch.native.build import ptxas_report
     from kubernetes_tpu_torch.oracle import ClusterState, GenericScheduler
     from kubernetes_tpu_torch.ops import probe_kernel as PK
+    from kubernetes_tpu_torch.ops import zreplay_kernel as ZK
     from kubernetes_tpu_torch.scheduler.algorithm import (
         TorchScheduleAlgorithm,
     )
@@ -376,30 +579,48 @@ def main() -> int:
          nvidia_smi=smi, torch=torch.__version__,
          cuda=torch.version.cuda)
 
+    # one nvcc per kernel source, all started together
     t0 = time.perf_counter()
-    lib = PK.build()
-    emit("build", kernel="resource_probe", seconds=time.perf_counter() - t0,
-         ptxas=ptxas_report(lib, "resource_probe_kernel"),
+    with ThreadPoolExecutor(2) as pool:
+        k1_lib, k3_lib = pool.map(lambda K: K.build(), (PK, ZK))
+    emit("build", kernels=["resource_probe", "zreplay"],
+         seconds=time.perf_counter() - t0,
+         ptxas={"resource_probe": ptxas_report(k1_lib,
+                                               "resource_probe_kernel"),
+                "zreplay": ptxas_report(k3_lib, "zreplay_kernel")},
          c_replay=replay._load_lib() is not None)
 
     times, max_err = phase_kernel(PK, S)
     if args.baseline:
         phase_baseline(PK, S, args.baseline)
+    k3_times, k3_err = phase_k3(ZK, S)
     launches, density_shapes = phase_main_path(
+        PK, ZK, T, ClusterState, TorchScheduleAlgorithm, S)
+    z_k1, z_k1_shapes, z_k3, z_k3_shapes = phase_zoned_density(
+        PK, ZK, T, ClusterState, TorchScheduleAlgorithm, S,
+        replay.replay_spec)
+    tpl_k1, tpl_k1_shapes = phase_many_templates(
         PK, T, ClusterState, TorchScheduleAlgorithm, S)
-    mixed_launches, mixed_shapes = phase_mixed(
-        PK, T, ClusterState, GenericScheduler, TorchScheduleAlgorithm, S)
+    mixed_launches, mixed_shapes, mixed_k3, mixed_k3_shapes = phase_mixed(
+        PK, ZK, T, ClusterState, GenericScheduler, TorchScheduleAlgorithm,
+        S)
 
-    # the main path probes J=128 over the 5,000 nodes padded to 8,192
+    # the density path probes J=128 over the 5,000 nodes padded to 8,192;
+    # the zoned density path runs one 50,000-pick run in a 65,536 bucket
     k1 = times[(128, 8192)]
+    k3 = k3_times["main N=8192 K=65536"]
     print(json.dumps({"kernels": [{
         "name": "resource_probe",
         "route": "cuda",
         "source": "kubernetes_tpu_torch/csrc/probe_kernel.cu",
         "replaces": "kubernetes_tpu/ops/pallas_probe.py:63",
         "launches": launches,
-        "launches_by_path": {"density": launches, "mixed": mixed_launches},
+        "launches_by_path": {"density": launches, "zoned_density": z_k1,
+                             "many_templates": tpl_k1,
+                             "mixed": mixed_launches},
         "launches_by_shape": {"density": density_shapes,
+                              "zoned_density": z_k1_shapes,
+                              "many_templates": tpl_k1_shapes,
                               "mixed": mixed_shapes},
         "max_abs_err": max_err,
         "matches_plain": True,
@@ -413,6 +634,24 @@ def main() -> int:
         "grid": k1["grid"],
         "block": k1["block"],
         "j_chunk": k1["j_chunk"],
+        "library_ms": None,
+    }, {
+        "name": "zreplay",
+        "route": "cuda",
+        "source": "kubernetes_tpu_torch/csrc/zreplay_kernel.cu",
+        "replaces": "kubernetes_tpu/models/zreplay.py:59",
+        "launches": z_k3,
+        "launches_by_path": {"zoned_density": z_k3, "mixed": mixed_k3},
+        "launches_by_shape": {"zoned_density": z_k3_shapes,
+                              "mixed": mixed_k3_shapes},
+        "max_abs_err": k3_err,
+        "matches_plain": True,
+        "ms": k3["ms"],
+        "us_per_pick": k3["us_per_pick"],
+        "plain_ms": k3["plain_ms"],
+        "bound_ms": k3["bound_ms"],
+        "bound_by": k3["bound_by"],
+        "bound_share": k3["bound_share"],
         "library_ms": None,
     }]}), flush=True)
     print(smi, flush=True)

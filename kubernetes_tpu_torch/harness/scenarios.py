@@ -73,6 +73,29 @@ def pause_pods(T, k, labels=None, requests=None, name0=0, prefix="pod"):
     ]
 
 
+def template_pods(T, num_templates, per, labels=None, cpu0=50, mem_step=50,
+                  name0="", host_port=None):
+    """num_templates RC templates of `per` identical pods each, template
+    t requesting cpu0 + 5t millicores and 100 + (t % 7)*mem_step MiB
+    (distinct templates, so distinct runs), each pod holding host_port
+    when set (tests/test_wave.py template_pods)."""
+    pods = []
+    for t in range(num_templates):
+        ports = ([T.ContainerPort(host_port=host_port)]
+                 if host_port is not None else [])
+        for i in range(per):
+            pods.append(T.Pod(
+                metadata=T.ObjectMeta(
+                    name=f"{name0}tpl{t:03d}-{i:03d}",
+                    labels=dict(labels or {"name": "sched-perf"})),
+                spec=T.PodSpec(containers=[T.Container(
+                    requests={"cpu": f"{cpu0 + t * 5}m",
+                              "memory": f"{100 + (t % 7) * mem_step}Mi"},
+                    ports=list(ports))]),
+            ))
+    return pods
+
+
 def port_pods(T, k, host_port=8080, name0=0):
     """k identical pods holding one host port (one copy per node)."""
     return [
@@ -324,6 +347,9 @@ PROBE_CASES = (
     ("edge mem 2^40", 128, 1024, {"big_mem": True}),
     ("edge zero commit", 128, 1024, {"zero_commit": True}),
     ("edge cap > 2^59", 128, 1024, {"huge_cap": True}),
+    # the grouped header probe launches K1 at J=1, 7 of its 8 j lanes idle
+    ("edge J=1", 1, 1024, {}),
+    ("edge J=1 N=8192", 1, 8192, {}),
 )
 
 
@@ -336,3 +362,93 @@ def _lr_bound_usage(rng, cap, k):
     target = cap * (10 - k) // 10
     j = np.minimum(rng.integers(0, 15, len(cap)), np.maximum(target - 1, 0))
     return target - 1 - j
+
+
+def zreplay_case(N, seed, *, K=256, k_real=None, num_zones=4,
+                 unzoned_every=4, zero_spread=False, tt_20_18=False,
+                 veto=False, rows_dyn=None, cap=(2, 12), has_selectors=True,
+                 selfmatch=1, weights=None):
+    """-> numpy inputs of one run's pick loop (ops/zreplay_kernel.
+    replay_picks; models/zreplay._replay_run of the JAX package), in
+    permuted node space: {"nodes": NODE_INPUTS name -> array (frontier
+    NOT vetoed), "veto": bool[N], "scalars": {nz_mcpu, nz_mem,
+    selfmatch, L0}, "weights": {w_lr, ..., w_ip}, "K", "k_real",
+    "rows_dyn", "num_zones", "has_selectors"}.
+
+    Zones round-robin over 1..num_zones-1, every unzoned_every-th node
+    unzoned (0); frontiers (commits a node takes) drawn from `cap`;
+    rows_dyn defaults to the table depth pick_j gives (the largest
+    frontier + 2), so no pick bails. The edge cases: zero_spread gives
+    every node spread count 0 and no self-match, so the zone maximum is
+    0 and the zone score 0/0 = NaN (INT64_MIN in the score); tt_20_18
+    puts TaintToleration counts at 18 and 20 only, where (1 - 18/20)*10
+    truncates to 0 in float64 and an integer rewrite gives 1; veto marks
+    a third of the nodes (one copy each)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    n = np.arange(N)
+    alloc_cpu = rng.choice([2000, 4000, 8000], N)
+    alloc_mem = rng.choice([8, 16, 32], N) * 2**30
+    zone = np.where(n % unzoned_every == 0, 0,
+                    1 + n % max(num_zones - 1, 1)) if unzoned_every \
+        else 1 + n % max(num_zones - 1, 1)
+    if num_zones <= 1:
+        zone = np.zeros(N, np.int64)
+    nodes = {
+        "fit_static": (rng.random(N) < 0.9).astype(np.uint8),
+        "frontier": rng.integers(cap[0], cap[1] + 1, N),
+        "static_add": rng.integers(0, 12, N),
+        "spread_base": (np.zeros(N, np.int64) if zero_spread
+                        else rng.integers(0, 6, N)),
+        "na_counts": rng.integers(0, 30, N),
+        "tt_counts": (rng.choice([18, 20], N) if tt_20_18
+                      else rng.integers(0, 20, N)),
+        "ip_totals": rng.integers(-50, 51, N),
+        "nz_cpu0": (alloc_cpu * rng.random(N) * 0.6).astype(np.int64),
+        "nz_mem0": (alloc_mem * rng.random(N) * 0.6).astype(np.int64),
+        "alloc_cpu": alloc_cpu,
+        "alloc_mem": alloc_mem,
+        "zone_id": zone,
+    }
+    nodes = {k: np.asarray(v, np.uint8 if k == "fit_static" else
+                           np.int32 if k == "zone_id" else np.int64)
+             for k, v in nodes.items()}
+    w = dict(w_lr=1, w_ba=1, w_spread=1, w_na=1, w_tt=1, w_ip=1)
+    if weights:
+        w.update(weights)
+    return {
+        "nodes": nodes,
+        "veto": (n % 3 == 1) if veto else np.zeros(N, bool),
+        "scalars": {"nz_mcpu": 100, "nz_mem": 500 * 2**20,
+                    "selfmatch": 0 if zero_spread else selfmatch,
+                    "L0": int(rng.integers(0, 1000))},
+        "weights": w,
+        "K": K,
+        "k_real": K if k_real is None else k_real,
+        "rows_dyn": (int(nodes["frontier"].max()) + 2 if rows_dyn is None
+                     else rows_dyn),
+        "num_zones": num_zones,
+        "has_selectors": has_selectors,
+    }
+
+
+#: (label, N, K, options) of K3's checks: the main path's shape (5,000
+#: nodes padded to 8,192; a 50,000-pod run in a 65,536-step bucket) and
+#: the edge inputs where bit identity can break
+ZREPLAY_CASES = (
+    ("main N=8192 K=65536", 8192, 65536,
+     {"k_real": 50000, "cap": (4, 10), "num_zones": 4,
+      "unzoned_every": 0}),
+    ("edge max_zone == 0 (NaN)", 1024, 256, {"zero_spread": True}),
+    ("edge TaintToleration mx=20 c=18", 1024, 256, {"tt_20_18": True}),
+    ("edge unzoned mixed with zoned", 1024, 256, {"unzoned_every": 2}),
+    ("edge veto", 1024, 256, {"veto": True}),
+    ("edge bail at rows_dyn", 1024, 4096, {"rows_dyn": 3}),
+    ("edge steps with no fit", 1024, 4096, {"cap": (0, 3)}),
+    ("edge k_real < K_bucket", 1024, 256, {"k_real": 100}),
+    ("edge N=1500", 1500, 1024, {}),
+    ("edge no selectors, one zone", 1024, 256,
+     {"has_selectors": False, "num_zones": 1}),
+    ("edge N=16384 (state in device memory)", 16384, 4096, {}),
+)

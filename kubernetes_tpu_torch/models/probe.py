@@ -17,7 +17,9 @@ Its product crosses to the host as ONE int64 array: the 11 header rows,
 then the [J, N] j-table in the narrowest safe dtype, packed into int64
 words along j — the same layout as the JAX package, which the host half
 (tables_from_packed / tables_from_stk / RunTables, numpy code copied
-verbatim from kubernetes_tpu/models/probe.py) unpacks.
+verbatim from kubernetes_tpu/models/probe.py) unpacks. The grouped
+probe (WaveProbe.probe_group) ships only the header rows of a group of
+runs, probed at J=1, plus the live resource block, also in one copy.
 """
 
 from __future__ import annotations
@@ -230,6 +232,28 @@ def _probe_fn(config: SchedulerConfig, num_zones: int, num_values: int,
     return {"packed": torch.cat([stk, tabw], dim=0)}
 
 
+def _group_probe_fn(config: SchedulerConfig, num_zones: int,
+                    num_values: int, G: int, static, carry, pods):
+    """Header-row probe for a group of run representatives: pods holds
+    the group's pod rows on a leading run axis (G_bucket of them, the
+    last G_bucket - G repeating the last representative, see
+    wave.group_buffer). Each of the G runs is probed at J=1 (one K1
+    launch each; the host rebuilds the resource j-axis itself from the
+    shipped resource block, see models/hosttab), and the padded slots
+    repeat the last header. -> ONE tensor i64[G_bucket*N_STK_ROWS + 6, N]
+    so the whole product crosses to the host in one copy: the per-run
+    headers, then the carry's live resource block (the base the host
+    j-tables start from)."""
+    G_bucket = pods["req_mcpu"].shape[0]
+    stks = [
+        _probe_rows(config, num_zones, num_values, 1, static, carry,
+                    {f: t[g] for f, t in pods.items()})[0]
+        for g in range(G)
+    ]
+    stks += [stks[-1]] * (G_bucket - G)
+    return torch.cat(stks + [carry["res"]], dim=0)
+
+
 N_STK_ROWS = 11  # header rows before the packed j-table words
 
 
@@ -293,6 +317,28 @@ class WaveProbe:
             has_selectors=has_selectors, zone_id=zone_id,
             self_anti_veto=self_anti_veto, svc_ctx=svc_ctx,
         )
+
+    def probe_group(self, static, carry, prev, pods, G: int,
+                    num_zones: int, num_values: int, apply_fn,
+                    apply_group_fn):
+        """-> (carry', headers i64[G_bucket, N_STK_ROWS, N], usage
+        i64[6, N]). `prev` is the deferred fold this probe carries: None
+        or ("single", pod, counts) / ("group", pods, counts), folded
+        into the carry first (apply_fn / apply_group_fn). `usage` is the
+        carry's resource block at probe time, the host j-table base
+        (models/hosttab). One device-to-host copy."""
+        if prev is not None:
+            kind, ppod, pcounts = prev
+            fold = apply_fn if kind == "single" else apply_group_fn
+            carry = fold(static, carry, ppod, pcounts)
+        out = _group_probe_fn(self.config, num_zones, num_values, G,
+                              static, carry, pods)
+        arr = np.ascontiguousarray(out.cpu().numpy())
+        G_bucket = pods["req_mcpu"].shape[0]
+        N = arr.shape[1]
+        headers = arr[:G_bucket * N_STK_ROWS].reshape(G_bucket, N_STK_ROWS,
+                                                     N)
+        return carry, headers, arr[G_bucket * N_STK_ROWS:]
 
 
 def tables_from_packed(config: SchedulerConfig, arr: np.ndarray,

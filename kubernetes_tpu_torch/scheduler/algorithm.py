@@ -30,16 +30,21 @@ from kubernetes_tpu_torch.snapshot.pad import next_pow2, pad_snapshot
 
 
 class TorchScheduleAlgorithm:
-    def __init__(self, device="cuda", min_run: int = 16, config=None):
+    def __init__(self, device="cuda", min_run: int = 16, config=None,
+                 replay=None):
         """config: a models/batch SchedulerConfig overriding the default
-        provider."""
+        provider. replay overrides the wave's host replay engine (a
+        testing seam, e.g. models/replay.replay_spec); it also sends
+        zoned selector-spread runs to that replay instead of the device
+        replay."""
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
                 "TorchScheduleAlgorithm: CUDA is not available; pass "
                 "device='cpu' to run on the CPU")
+        # the wave driver, exposed as TPUScheduleAlgorithm exposes its own
         self._wave = WaveScheduler(config=config, min_run=min_run,
-                                   device=self.device)
+                                   device=self.device, replay=replay)
         # selectHost's round-robin counter persists across waves, like
         # the reference's genericScheduler.lastNodeIndex across pods
         self._last_node_index = 0

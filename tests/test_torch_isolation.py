@@ -21,7 +21,7 @@ COPIES = (
     "oracle/priorities.py", "oracle/scheduler.py",
     "snapshot/__init__.py", "snapshot/encode.py", "snapshot/interpod.py",
     "snapshot/volumes.py", "snapshot/services.py", "snapshot/pad.py",
-    "models/replay.py", "native/replay.c",
+    "models/replay.py", "models/hosttab.py", "native/replay.c",
 )
 #: functions the port's own modules keep verbatim from their counterparts
 FUNCTION_COPIES = {
@@ -29,7 +29,15 @@ FUNCTION_COPIES = {
                         "tables_from_stk"),
     "models/wave.py": ("_WAVE_PRIORITIES", "config_eligible",
                        "_lt_pernode_dom", "run_eligible", "pick_j",
-                       "split_runs", "gather_batch", "_permute_tables"),
+                       "split_runs", "gather_batch", "_permute_tables",
+                       "run_pure", "_host_group_cap", "gang_score_add",
+                       "host_group_replay"),
+}
+#: functions the port keeps in another form, each with the reason its
+#: docstring records (tests/test_torch_grouped.py checks group_buffer's
+#: rows against the JAX package's packed buffer)
+DEVIATIONS = {
+    ("models/wave.py", "group_buffer"): "models/pack.py",
 }
 
 
@@ -135,3 +143,16 @@ def test_function_copy_has_not_drifted(rel, name):
     port = _top_level_source(PORT / rel, name)
     ref = _top_level_source(JAX_PKG / rel, name)
     assert port.replace("kubernetes_tpu_torch.", "kubernetes_tpu.") == ref
+
+
+@pytest.mark.parametrize("rel,name", sorted(DEVIATIONS))
+def test_deviation_is_recorded(rel, name):
+    """A recorded deviation exists in both packages, differs, and says in
+    its docstring what it deviates from and why."""
+    port = _top_level_source(PORT / rel, name)
+    ref = _top_level_source(JAX_PKG / rel, name)
+    assert port.replace("kubernetes_tpu_torch.", "kubernetes_tpu.") != ref
+    doc = ast.get_docstring(ast.parse(port).body[0])
+    assert f"Deviation from kubernetes_tpu/{rel} {name}" in \
+        " ".join(doc.split())
+    assert DEVIATIONS[(rel, name)] in doc

@@ -1,6 +1,6 @@
-"""The port on the card: the CUDA probe kernel against its plain
-version, and the scheduler on CUDA against the same call on the CPU and
-the port's oracle copy. Each test skips where there is no CUDA device.
+"""The port on the card: the CUDA kernels (the probe kernel K1, the
+zoned pick loop K3) against their plain versions, and the scheduler on
+CUDA against the same call on the CPU and the port's oracle copy. Each test skips where there is no CUDA device.
 
 This module imports only torch and the port, so it also runs on a
 machine without JAX:
@@ -15,6 +15,7 @@ import kubernetes_tpu_torch.api.types as T
 from kubernetes_tpu_torch.harness import scenarios as S
 from kubernetes_tpu_torch.oracle import ClusterState, GenericScheduler
 from kubernetes_tpu_torch.ops import probe_kernel as PK
+from kubernetes_tpu_torch.ops import zreplay_kernel as ZK
 from kubernetes_tpu_torch.scheduler.algorithm import TorchScheduleAlgorithm
 
 TERMS = (("lr", 1), ("ba", 1))
@@ -78,4 +79,54 @@ def test_scheduler_on_card_matches_cpu_and_oracle(cuda_device):
     assert PK.LAUNCHES > launches
     assert got == TorchScheduleAlgorithm(device="cpu").schedule_backlog(
         pods, state)
+    assert got == GenericScheduler().schedule_backlog(pods, state.clone())
+
+
+def zreplay_inputs(case, device):
+    """scenarios.zreplay_case on the device: -> (nodes, scalars, kw)."""
+    nodes = {k: torch.from_numpy(v).to(device)
+             for k, v in case["nodes"].items()}
+    veto = torch.from_numpy(case["veto"]).to(device)
+    nodes["frontier"] = torch.where(veto, nodes["frontier"].clamp(max=1),
+                                    nodes["frontier"])
+    sc = case["scalars"]
+    scalars = torch.tensor([sc["nz_mcpu"], sc["nz_mem"], sc["selfmatch"],
+                            sc["L0"], 1], device=device)
+    kw = {k: case[k] for k in ("K", "k_real", "rows_dyn", "num_zones",
+                               "has_selectors")}
+    return nodes, scalars, kw
+
+
+@pytest.mark.parametrize("case", S.ZREPLAY_CASES,
+                         ids=[c[0] for c in S.ZREPLAY_CASES])
+def test_zreplay_kernel_matches_plain_on_card(case, cuda_device):
+    label, N, K, opts = case
+    c = S.zreplay_case(N, 5, K=K, **opts)
+    nodes, scalars, kw = zreplay_inputs(c, cuda_device)
+    launches = ZK.LAUNCHES
+    got = ZK.replay_picks(nodes, scalars, c["weights"], **kw)
+    assert ZK.LAUNCHES == launches + 1
+    want = ZK.replay_picks_plain(nodes, scalars, c["weights"], **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b), label
+
+
+def test_zoned_scheduler_on_card_matches_cpu_and_oracle(cuda_device):
+    # a selector run alone (the next run has no selector: host path), then
+    # a group of selector templates
+    nodes = S.zoned_density_nodes(T, 40, unzoned_every=5, pods_cap="20")
+    state = ClusterState.build(nodes, services=[
+        S.service(T, "svc", {"name": "sched-perf"})])
+    pods = (S.pause_pods(T, 300)
+            + S.template_pods(T, 2, 20, labels={"app": "x"}, name0="x")
+            + S.template_pods(T, 6, 30))
+    launches = ZK.LAUNCHES
+    algo = TorchScheduleAlgorithm(device=cuda_device, min_run=1)
+    got = algo.schedule_backlog(pods, state)
+    assert ZK.LAUNCHES > launches
+    assert algo._wave.dispatches.get("zreplay", 0) >= 1
+    assert algo._wave.dispatches.get("zreplay_group", 0) >= 1
+    assert got == TorchScheduleAlgorithm(device="cpu", min_run=1) \
+        .schedule_backlog(pods, state)
     assert got == GenericScheduler().schedule_backlog(pods, state.clone())

@@ -29,18 +29,29 @@ from kubernetes_tpu_torch.snapshot.encode import pod_feature_key
 from tests.test_torch_ops import encode, port_state, scenario, to_port
 
 
+def dispatch_shape(dispatches: dict) -> dict:
+    """A wave's dispatch tally without the port's scan_pods count, which
+    the JAX driver does not keep."""
+    return {k: v for k, v in dispatches.items() if k != "scan_pods"}
+
+
 def run_all(build, min_run=1):
-    """build(types, ClusterState) -> (state, pods). -> (port names, JAX
-    names, oracle names), the oracle being the port's copy."""
+    """build(types, ClusterState) -> (state, pods). Asserts that the
+    port's names equal the JAX driver's and the oracle's (the port's
+    copy), and that the two drivers' dispatch tallies are equal (the same
+    routing: single and grouped probes, device replays, folds, scans).
+    -> the port's names."""
     pstate, ppods = build(TT, PortState)
     jstate, jpods = build(JT, JaxState)
     want = PortOracle().schedule_backlog(ppods, pstate.clone())
-    got = TorchScheduleAlgorithm(device="cpu", min_run=min_run) \
-        .schedule_backlog(ppods, pstate)
-    jax = TPUScheduleAlgorithm(min_run=min_run).schedule_backlog(jpods,
-                                                                 jstate)
+    port = TorchScheduleAlgorithm(device="cpu", min_run=min_run)
+    got = port.schedule_backlog(ppods, pstate)
+    jax_algo = TPUScheduleAlgorithm(min_run=min_run)
+    jax = jax_algo.schedule_backlog(jpods, jstate)
     assert got == want
     assert jax == want
+    assert dispatch_shape(port._wave.dispatches) == dispatch_shape(
+        jax_algo._wave.dispatches)
     return got
 
 
