@@ -1,15 +1,16 @@
 """Drive the PyTorch/CUDA port on one NVIDIA GPU and check it end to end.
 
-    python3 chip_smoke.py [--baseline OLD.cu]
+    python3 chip_smoke.py [--baseline OLD.cu] [--baseline-k3 OLD.cu]
 
 Phases, each printing one JSON line; any failure raises and exits
 non-zero:
   1. device: the card's name, and its name and power limit as nvidia-smi
      reports them;
   2. build: the CUDA kernels (csrc/probe_kernel.cu, K1; csrc/
-     zreplay_kernel.cu, K3) built with nvcc for sm_90a from the sources
-     in this checkout, in parallel, with ptxas's registers, spills and
-     shared memory for each;
+     zreplay_kernel.cu, K3, one report per template instance; csrc/
+     chain_floor.cu, K3's yardstick) built with nvcc for sm_90a from the
+     sources in this checkout, in parallel, with ptxas's registers, spills
+     and shared memory for each;
   3. kernel vs plain: ops/probe_kernel.resource_probe (K1) on the card
      against its plain torch version, exact equality, at the main path's
      shapes and on edge inputs (scenarios.PROBE_CASES, J=1 included),
@@ -20,8 +21,16 @@ non-zero:
      in turns (old, new, new, old) on every case;
   3b. K3 vs plain: ops/zreplay_kernel.replay_picks against
      replay_picks_plain, exact equality of chosen, j and (L, n_done,
-     bailed), on scenarios.ZREPLAY_CASES, with profiler device times,
-     microseconds per pick, the plain version's time and the bound;
+     bailed), on scenarios.ZREPLAY_CASES, with device times (CUDA events
+     around launches queued back to back behind a device sleep, outputs
+     allocated once), microseconds per pick, the plain version's time
+     and two bounds: the operations bound (the scores of the nodes fit at
+     each pick) and the chain bound (the chain floor's time per step in a
+     block of K3's 256 threads, measured first, times the run's picks);
+     with --baseline-k3, also the pick loop built from OLD.cu (the same C
+     interface) against this checkout's, device times in turns (old, new,
+     new, old) and each one's max_abs_err against the plain version, on
+     every case;
   4. main path: the scheduler_perf density shape at the north-star size
      (5,000 nodes of 4 CPU / 32Gi / 110 pods, 50,000 pause pods of
      100m / 500Mi) through TorchScheduleAlgorithm on the card; every pod
@@ -66,10 +75,19 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 #: NVIDIA H100 SXM data sheet: HBM3 rate and the float64 and float32
 #: rates of the CUDA cores (the probe's float64 BalancedAllocation math,
-#: the pick loop's float32 SelectorSpread math)
+#: the pick loop's float32 SelectorSpread math); the int32 rate of the
+#: CUDA cores from NVIDIA's H100 architecture whitepaper (SXM5: 33.5
+#: TOPS), for the pick loop's 64-bit score sums and compares
 HBM_BYTES_PER_S = 3.35e12
 F64_FLOP_PER_S = 34e12
 F32_FLOP_PER_S = 67e12
+INT32_OPS_PER_S = 33.5e12
+#: K3's block size (csrc/zreplay_kernel.cu THREADS): its chain bound uses
+#: the chain floor of a block this size
+K3_THREADS = 256
+#: cycles of the device sleep that queued_ms puts ahead of its window
+#: (about 20 ms at the H100's clocks)
+SLEEP_CYCLES = 40_000_000
 
 
 def emit(phase: str, **kw) -> None:
@@ -111,6 +129,34 @@ def cuda_ms(fn, reps=21, inner=10) -> float:
             fn()
         end.record()
         torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / inner)
+    return statistics.median(times)
+
+
+def queued_ms(fn, reps, inner) -> float:
+    """Median over `reps` of the mean CUDA-event time of `inner` calls of
+    fn back to back, queued behind a device sleep (SLEEP_CYCLES) so that
+    the host's time to enqueue them falls outside the window: device time,
+    with the gaps between launches. Raises if enqueuing them took the host
+    half the sleep or more."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SLEEP_CYCLES)
+        t0 = time.perf_counter()
+        start.record()
+        for _ in range(inner):
+            fn()
+        end.record()
+        enqueue_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        if enqueue_s >= 0.01:
+            raise AssertionError(f"enqueuing {inner} launches took the host "
+                                 f"{enqueue_s * 1e3:.3f} ms: the window "
+                                 f"would hold host time")
         times.append(start.elapsed_time(end) / inner)
     return statistics.median(times)
 
@@ -279,18 +325,36 @@ def phase_baseline(PK, S, baseline_src):
 # -- phase 3b: K3 against its plain version -----------------------------------
 
 
-def zreplay_bound_ms(N, K, steps) -> tuple:
+def zreplay_bound_ms(N, K, node_picks) -> tuple:
     """Least time for one run's pick loop: its inputs read once (eleven
     i64 rows, the u8 fit row, the i32 zones, five scalars) and its outputs
     written once (chosen i32[K], j i64[N], three i64) over the HBM rate;
-    the float32 SelectorSpread arithmetic (a division and four multiply
-    or add operations per node per step run) over the float32 rate.
+    what each pick needs of each node fit at it (node_picks in all): the
+    float32 add of its spread and zone terms and the truncation, over the
+    float32 rate, and the 64-bit add to its score and the compare with the
+    maximum (two int32 operations each), over the int32 rate.
     -> (ms, "bytes" | "operations")."""
     nbytes = N * (11 * 8 + 1 + 4) + 5 * 8 + K * 4 + N * 8 + 3 * 8
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = 5 * N * steps / F32_FLOP_PER_S
+    t_ops = (2 * node_picks / F32_FLOP_PER_S
+             + 4 * node_picks / INT32_OPS_PER_S)
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
+
+
+def live_node_picks(nodes, chosen) -> int:
+    """The sum over a run's picks of the nodes fit at each (fit_static and
+    j < frontier): the scores the pick loop must evaluate."""
+    left = nodes["frontier"].cpu().tolist()
+    fit = ((nodes["fit_static"] != 0) & (nodes["frontier"] > 0)).cpu()
+    n_fit, total = int(fit.sum()), 0
+    for m in chosen.cpu().tolist():
+        if m < 0:
+            break
+        total += n_fit
+        left[m] -= 1
+        n_fit -= left[m] == 0
+    return total
 
 
 def zreplay_inputs(S, case, seed):
@@ -310,7 +374,63 @@ def zreplay_inputs(S, case, seed):
     return label, N, nodes, scalars, c["weights"], kw
 
 
-def phase_k3(ZK, S):
+def k3_reports(lib) -> dict:
+    """ptxas's report of each template instance of K3 (its nodes per
+    thread in registers; 0 is the device-memory path)."""
+    from kubernetes_tpu_torch.native.build import ptxas_report
+
+    return {f"slots={k}": ptxas_report(lib, f"zreplay_kernelILi{k}E")
+            for k in (1, 2, 4, 8, 16, 32, 0)}
+
+
+def phase_chain_floor(lib, steps=50000) -> dict:
+    """K3's chain floor: the time of one step of csrc/chain_floor.cu (one
+    block, a block-wide max, a broadcast and one barrier per step) at 256
+    threads (K3's block) and at 1,024, CUDA events over `steps` steps.
+    -> {threads: microseconds per step}."""
+    import ctypes
+
+    fn = ctypes.CDLL(lib).chain_floor_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_void_p]
+    out = torch.empty(1, dtype=torch.int64, device="cuda")
+    us = {}
+    for threads in (K3_THREADS, 1024):
+        def launch():
+            err = fn(out.data_ptr(), steps, threads,
+                     torch.cuda.current_stream().cuda_stream)
+            if err != 0:
+                raise RuntimeError(f"chain_floor launch failed: error {err}")
+
+        ms = queued_ms(launch, reps=5, inner=1)
+        us[threads] = ms * 1e3 / steps
+        emit("chain_floor", steps=steps, threads=threads, ms=ms,
+             us_per_step=us[threads])
+    return us
+
+
+def k3_launcher(ZK, nodes, scalars, weights, lib=None, **kw):
+    """-> a function that launches K3 (of lib; this checkout's by default)
+    through its C entry on outputs and scratch allocated once, for
+    timing. It passes by the wrapper, so its launches are not counted."""
+    args, out, scratch = ZK._c_args(nodes, scalars, weights, lib=lib, **kw)
+    fn = (lib or ZK._lib()).zreplay_launch
+
+    def launch():
+        err = fn(*args)
+        if err != 0:
+            raise RuntimeError(f"zreplay kernel launch failed: error {err}")
+
+    launch.buffers = (out, scratch)
+    return launch
+
+
+def phase_k3(ZK, S, chain_us, old_lib=None):
+    """K3 against its plain version on every ZREPLAY_CASES entry, with
+    device times (queued_ms) and both bounds; with old_lib, also the K3
+    of that library in turns old, new, new, old. chain_us: the chain
+    floor's microseconds per step in a block of K3's size."""
     results = {}
     max_err = 0
     for seed, case in enumerate(S.ZREPLAY_CASES):
@@ -321,19 +441,43 @@ def phase_k3(ZK, S):
         want = ZK.replay_picks_plain(nodes, scalars, weights, **kw)
         torch.cuda.synchronize()
         plain_ms = (time.perf_counter() - t0) * 1e3
+
+        def err_of(out):
+            return max(int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
+                       for a, b in zip(out, want))
+
         equal = all(torch.equal(a, b) for a, b in zip(got, want))
-        err = max(int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
-                  for a, b in zip(got, want))
+        err = err_of(got)
         max_err = max(max_err, err)
         picks = int((got[0] >= 0).sum())
-        ms, _ = kernel_device_ms(
-            lambda: ZK._launch(nodes, scalars, weights, **kw),
-            "zreplay_kernel", n=3 if kw["K"] > 8192 else 10)
-        bound_ms, bound_by = zreplay_bound_ms(N, kw["K"], picks)
+        node_picks = live_node_picks(nodes, want[0])
+        launchers = {"new": k3_launcher(ZK, nodes, scalars, weights, **kw)}
+        if old_lib:
+            launchers["old"] = k3_launcher(ZK, nodes, scalars, weights,
+                                           old_lib, **kw)
+        turns = ("old", "new", "new", "old") if old_lib else ("new",)
+        reps, inner = (3, 1) if kw["K"] > 8192 else (7, 10)
+        times = {"old": [], "new": []}
+        for which in turns:
+            times[which].append(queued_ms(launchers[which], reps, inner))
+        ms = statistics.mean(times["new"])
+        bound_ms, bound_by = zreplay_bound_ms(N, kw["K"], node_picks)
+        chain_ms = chain_us * picks / 1e3
         row = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                    bound_by=bound_by, bound_share=bound_ms / ms,
-                   picks=picks, us_per_pick=ms * 1e3 / max(picks, 1),
+                   chain_bound_ms=chain_ms, chain_share=chain_ms / ms,
+                   picks=picks, node_picks=node_picks,
+                   us_per_pick=ms * 1e3 / max(picks, 1),
                    scratch_bytes=ZK.scratch_bytes(N, kw["num_zones"]))
+        if old_lib:
+            old_ms = statistics.mean(times["old"])
+            old = ZK._launch(nodes, scalars, weights, lib=old_lib, **kw)
+            torch.cuda.synchronize()
+            row.update(new_ms=times["new"], old_ms=times["old"],
+                       old_us_per_pick=old_ms * 1e3 / max(picks, 1),
+                       speedup=old_ms / ms, old_max_abs_err=err_of(old),
+                       old_bound_share=bound_ms / old_ms,
+                       old_chain_share=chain_ms / old_ms)
         results[label] = row
         emit("k3_vs_plain", case=label, N=N, K=kw["K"],
              k_real=kw["k_real"], num_zones=kw["num_zones"], equal=equal,
@@ -558,6 +702,9 @@ def main() -> int:
     ap.add_argument("--baseline", metavar="OLD.cu",
                     help="also time the probe kernel built from this "
                     "source against this checkout's")
+    ap.add_argument("--baseline-k3", metavar="OLD.cu",
+                    help="also time the pick loop (K3) built from this "
+                    "source against this checkout's")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -565,7 +712,9 @@ def main() -> int:
     from kubernetes_tpu_torch.api import types as T
     from kubernetes_tpu_torch.harness import scenarios as S
     from kubernetes_tpu_torch.models import replay
-    from kubernetes_tpu_torch.native.build import ptxas_report
+    from kubernetes_tpu_torch.native.build import (
+        build_cuda, build_cuda_file, ptxas_report,
+    )
     from kubernetes_tpu_torch.oracle import ClusterState, GenericScheduler
     from kubernetes_tpu_torch.ops import probe_kernel as PK
     from kubernetes_tpu_torch.ops import zreplay_kernel as ZK
@@ -580,20 +729,36 @@ def main() -> int:
          cuda=torch.version.cuda)
 
     # one nvcc per kernel source, all started together
+    builds = [PK.build, ZK.build, lambda: build_cuda("chain_floor")]
+    if args.baseline_k3:
+        builds.append(lambda: build_cuda_file(
+            os.path.abspath(args.baseline_k3), "zreplay_kernel_baseline"))
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
-        k1_lib, k3_lib = pool.map(lambda K: K.build(), (PK, ZK))
-    emit("build", kernels=["resource_probe", "zreplay"],
+    with ThreadPoolExecutor(len(builds)) as pool:
+        k1_lib, k3_lib, chain_lib, *old_k3 = pool.map(lambda f: f(), builds)
+    k3_ptxas = k3_reports(k3_lib)
+    emit("build", kernels=["resource_probe", "zreplay", "chain_floor"],
          seconds=time.perf_counter() - t0,
          ptxas={"resource_probe": ptxas_report(k1_lib,
                                                "resource_probe_kernel"),
-                "zreplay": ptxas_report(k3_lib, "zreplay_kernel")},
+                "zreplay": k3_ptxas,
+                "chain_floor": {
+                    f"threads={n}": ptxas_report(
+                        chain_lib, f"chain_floor_kernelILi{n}E")
+                    for n in (K3_THREADS, 1024)}},
          c_replay=replay._load_lib() is not None)
 
     times, max_err = phase_kernel(PK, S)
     if args.baseline:
         phase_baseline(PK, S, args.baseline)
-    k3_times, k3_err = phase_k3(ZK, S)
+    chain_us = phase_chain_floor(chain_lib)
+    old_lib = None
+    if old_k3:
+        old_lib = ZK.load(old_k3[0])
+        emit("baseline_k3_build", source=args.baseline_k3,
+             ptxas=ptxas_report(old_k3[0], "zreplay_kernel"),
+             new_ptxas=k3_ptxas)
+    k3_times, k3_err = phase_k3(ZK, S, chain_us[K3_THREADS], old_lib)
     launches, density_shapes = phase_main_path(
         PK, ZK, T, ClusterState, TorchScheduleAlgorithm, S)
     z_k1, z_k1_shapes, z_k3, z_k3_shapes = phase_zoned_density(
@@ -652,6 +817,11 @@ def main() -> int:
         "bound_ms": k3["bound_ms"],
         "bound_by": k3["bound_by"],
         "bound_share": k3["bound_share"],
+        "chain_bound_ms": k3["chain_bound_ms"],
+        "chain_share": k3["chain_share"],
+        "chain_floor_us_by_threads": chain_us,
+        "node_picks": k3["node_picks"],
+        "ptxas": k3_ptxas,
         "library_ms": None,
     }]}), flush=True)
     print(smi, flush=True)

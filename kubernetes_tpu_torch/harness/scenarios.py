@@ -367,7 +367,8 @@ def _lr_bound_usage(rng, cap, k):
 def zreplay_case(N, seed, *, K=256, k_real=None, num_zones=4,
                  unzoned_every=4, zero_spread=False, tt_20_18=False,
                  veto=False, rows_dyn=None, cap=(2, 12), has_selectors=True,
-                 selfmatch=1, weights=None):
+                 selfmatch=1, weights=None, pad_tail=0.0, m_moves=False,
+                 sole_na=False):
     """-> numpy inputs of one run's pick loop (ops/zreplay_kernel.
     replay_picks; models/zreplay._replay_run of the JAX package), in
     permuted node space: {"nodes": NODE_INPUTS name -> array (frontier
@@ -383,7 +384,13 @@ def zreplay_case(N, seed, *, K=256, k_real=None, num_zones=4,
     0 and the zone score 0/0 = NaN (INT64_MIN in the score); tt_20_18
     puts TaintToleration counts at 18 and 20 only, where (1 - 18/20)*10
     truncates to 0 in float64 and an integer rewrite gives 1; veto marks
-    a third of the nodes (one copy each)."""
+    a third of the nodes (one copy each); pad_tail makes the last
+    fraction of the nodes statically unfit, as padding is; m_moves gives
+    spread counts of 0 or 1 and static scores far apart, so one node takes
+    many picks in a row and the spread maximum M moves at each; sole_na
+    gives one fit node the only large NodeAffinity count and a frontier
+    of 1, so the normalizer's sole holder leaves the fit set after its
+    first pick."""
     import numpy as np
 
     rng = np.random.default_rng(seed)
@@ -414,6 +421,15 @@ def zreplay_case(N, seed, *, K=256, k_real=None, num_zones=4,
     nodes = {k: np.asarray(v, np.uint8 if k == "fit_static" else
                            np.int32 if k == "zone_id" else np.int64)
              for k, v in nodes.items()}
+    if pad_tail:
+        nodes["fit_static"][int(N * (1 - pad_tail)):] = 0
+    if m_moves:
+        nodes["spread_base"] = rng.integers(0, 2, N)
+        nodes["static_add"] = rng.permutation(N) * 20
+    if sole_na:
+        h = int(np.flatnonzero(nodes["fit_static"] != 0)[0])
+        nodes["na_counts"][h] = 1000
+        nodes["frontier"][h] = 1
     w = dict(w_lr=1, w_ba=1, w_spread=1, w_na=1, w_tt=1, w_ip=1)
     if weights:
         w.update(weights)
@@ -451,4 +467,14 @@ ZREPLAY_CASES = (
     ("edge no selectors, one zone", 1024, 256,
      {"has_selectors": False, "num_zones": 1}),
     ("edge N=16384 (state in device memory)", 16384, 4096, {}),
+    ("edge padded tail (last 40% statically unfit)", 2048, 1024,
+     {"pad_tail": 0.4, "num_zones": 4, "unzoned_every": 0}),
+    ("edge M moves often", 1024, 512, {"m_moves": True, "cap": (20, 40)}),
+    ("edge sole NodeAffinity holder leaves", 1024, 256, {"sole_na": True}),
+    ("edge ragged N=1999", 1999, 512, {}),
+    ("edge weights other than 1", 1024, 256,
+     {"weights": {"w_spread": 3, "w_lr": 2, "w_na": 2, "w_ip": 5}}),
+    ("edge N=200", 200, 256, {}),
+    ("edge N=300", 300, 256, {}),
+    ("edge N=3000", 3000, 512, {}),
 )

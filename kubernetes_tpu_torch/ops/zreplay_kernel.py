@@ -34,7 +34,9 @@ step scheduled nothing or did not run), j i64[N], and state i64[3] =
 (L, n_done, bailed).
 
 Bound on the card: latency. The steps are sequential; the kernel runs
-one block and moves a few hundred kilobytes in all (see the source).
+one block, keeps each thread's nodes in registers (up to 8,192 nodes;
+beyond that in device memory) and moves a few hundred kilobytes in all
+(see the source).
 """
 
 from __future__ import annotations
@@ -204,14 +206,15 @@ def build() -> str:
     return build_cuda("zreplay_kernel")
 
 
-def scratch_bytes(N: int, num_zones: int, device=None) -> int:
-    """Device-memory bytes the kernel needs for its per-node state at
-    (N, num_zones): 0 when the state fits in shared memory. Raises when
-    num_zones does not fit in shared memory at all."""
+def scratch_bytes(N: int, num_zones: int, device=None, lib=None) -> int:
+    """Device-memory bytes the kernel (of `lib`; this checkout's by
+    default) needs for its per-node state at (N, num_zones): 0 when the
+    state fits on chip. Raises when num_zones does not fit in shared
+    memory at all."""
     out = ctypes.c_longlong(0)
     with torch.cuda.device(device):
-        err = _lib().zreplay_scratch_bytes(int(N), int(num_zones),
-                                           ctypes.byref(out))
+        err = (lib or _lib()).zreplay_scratch_bytes(int(N), int(num_zones),
+                                                    ctypes.byref(out))
     if err == -1:
         raise ValueError(f"replay_picks: {num_zones} zones do not fit in "
                          f"shared memory")
@@ -229,12 +232,11 @@ def _check(name: str, t: torch.Tensor, dtype, shape, device) -> None:
             f"{t.device}")
 
 
-def _launch(nodes: dict, scalars: torch.Tensor, weights: dict, *, K: int,
+def _c_args(nodes: dict, scalars: torch.Tensor, weights: dict, *, K: int,
             k_real: int, rows_dyn: int, num_zones: int, has_selectors: bool,
             lib=None):
-    """Launch the kernel (of `lib`, a library from load(); this
-    checkout's by default)."""
-    global LAUNCHES
+    """Check one launch's inputs and allocate its outputs -> (the C
+    entry's arguments, (chosen, j, state), scratch or None)."""
     device = scalars.device
     N = nodes["frontier"].shape[0]
     for name in NODE_INPUTS:
@@ -247,24 +249,36 @@ def _launch(nodes: dict, scalars: torch.Tensor, weights: dict, *, K: int,
     chosen = torch.empty((K,), dtype=torch.int32, device=device)
     j = torch.empty((N,), dtype=I64, device=device)
     state = torch.empty((3,), dtype=I64, device=device)
-    nbytes = scratch_bytes(N, num_zones, device)
+    nbytes = scratch_bytes(N, num_zones, device, lib)
     scratch = (torch.empty((nbytes,), dtype=torch.uint8, device=device)
                if nbytes else None)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = (lib or _lib()).zreplay_launch(
-            *(nodes[name].data_ptr() for name in NODE_INPUTS),
+    args = (*(nodes[name].data_ptr() for name in NODE_INPUTS),
             scalars.data_ptr(), chosen.data_ptr(), j.data_ptr(),
-            state.data_ptr(), None if scratch is None else scratch.data_ptr(),
+            state.data_ptr(),
+            None if scratch is None else scratch.data_ptr(),
             int(N), int(K), int(k_real), int(num_zones), int(rows_dyn),
             *(int(weights[w]) for w in WEIGHTS), int(bool(has_selectors)),
-            stream)
+            torch.cuda.current_stream(device).cuda_stream)
+    return args, (chosen, j, state), scratch
+
+
+def _launch(nodes: dict, scalars: torch.Tensor, weights: dict, *, K: int,
+            k_real: int, rows_dyn: int, num_zones: int, has_selectors: bool,
+            lib=None):
+    """Launch the kernel (of `lib`, a library from load(); this
+    checkout's by default)."""
+    global LAUNCHES
+    args, out, _scratch = _c_args(
+        nodes, scalars, weights, K=K, k_real=k_real, rows_dyn=rows_dyn,
+        num_zones=num_zones, has_selectors=has_selectors, lib=lib)
+    with torch.cuda.device(scalars.device):
+        err = (lib or _lib()).zreplay_launch(*args)
     if err != 0:
         raise RuntimeError(f"zreplay kernel launch failed: error {err}")
     LAUNCHES += 1
-    key = (N, K, num_zones)
+    key = (nodes["frontier"].shape[0], K, num_zones)
     LAUNCHES_BY_SHAPE[key] = LAUNCHES_BY_SHAPE.get(key, 0) + 1
-    return chosen, j, state
+    return out
 
 
 def replay_picks(nodes: dict, scalars: torch.Tensor, weights: dict, *,

@@ -189,6 +189,58 @@ def test_edge_cases_reach_their_inputs():
     assert any(N % 1024 for _, N, _, _ in S.ZREPLAY_CASES)
 
 
+def _full(label):
+    """-> (index, case) of a ZREPLAY_CASES entry at its own size."""
+    return next((i, c) for i, c in enumerate(S.ZREPLAY_CASES)
+                if c[0] == label)
+
+
+def _seeds(label):
+    """The (N, K, options, seed) at which each check runs the case: the
+    CPU parity test's size and seed, the on-card test's seed and
+    chip_smoke.py's (the case's index) at its own size."""
+    i, (_, N, K, opts) = _full(label)
+    return [_case(label)[1:] + (7,), (N, K, opts, 5), (N, K, opts, i)]
+
+
+def _fit_trace(c, chosen, n_done):
+    """The fit set before each pick and after the last, from the plain
+    version's choices: -> [(fit mask, j)]."""
+    fr = _vetoed(c)
+    j = np.zeros(len(fr), np.int64)
+    fit = (c["nodes"]["fit_static"] != 0) & (fr > 0)
+    out = [(fit.copy(), j.copy())]
+    for m in chosen[:n_done]:
+        j[m] += 1
+        fit[m] = j[m] < fr[m]
+        out.append((fit.copy(), j.copy()))
+    return out
+
+
+def test_sole_holder_and_moving_m_reach_their_inputs():
+    """The sole NodeAffinity holder is picked and leaves the fit set, so
+    the normalizer's maximum over the fit set falls; in "M moves often"
+    the spread maximum M over the fit set rises at half the picks or more.
+    Both at every size and seed the three checks run them at."""
+    for N, K, opts, seed in _seeds("edge sole NodeAffinity holder leaves"):
+        c = S.zreplay_case(N, seed, K=K, **opts)
+        chosen, j, _L, n_done, _b = _port(c)
+        na = c["nodes"]["na_counts"]
+        trace = _fit_trace(c, chosen, n_done)
+        fit0 = trace[0][0]
+        (h,) = np.flatnonzero(fit0 & (na == na[fit0].max()))
+        assert j[h] == 1 and c["nodes"]["frontier"][h] == 1, seed
+        maxima = [na[f].max() for f, _ in trace if f.any()]
+        assert maxima[0] == na[h] > maxima[-1], seed
+    for N, K, opts, seed in _seeds("edge M moves often"):
+        c = S.zreplay_case(N, seed, K=K, **opts)
+        chosen, _j, _L, n_done, _b = _port(c)
+        sb, sm = c["nodes"]["spread_base"], c["scalars"]["selfmatch"]
+        ms = [(sb + sm * jj)[f].max() for f, jj in
+              _fit_trace(c, chosen, n_done) if f.any()]
+        assert sum(b > a for a, b in zip(ms, ms[1:])) >= n_done // 2, seed
+
+
 def test_wrapper_has_no_fallback():
     """A device other than the CPU never reaches the plain version: the
     wrapper raises, and it has no try/except that could swallow a failed
