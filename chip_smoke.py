@@ -47,12 +47,33 @@ non-zero:
   5. mixed backlog: ~1,000 heterogeneous nodes and a backlog of RC
      template runs, short runs and singletons, equal to the port's copy
      of the serial oracle, with its dispatch tally;
-  6. the kernels line, with the launch counts of each path it drove;
+  6. Policy files with services: 5,000 policy-labelled nodes (zones
+     a/b/c, disktype, memtype) and 64 Services x 128 pods, scheduled
+     under each of scenarios.POLICY_DOCUMENTS (ServiceAffinity +
+     LabelsPresence + ServiceAntiAffinity + LabelPreference; and
+     ServiceAntiAffinity alone), each loaded from JSON through the
+     port's load_policy -> create_from_config on the card; names equal
+     to the same call on the CPU, each Service's pods in one zone (or in
+     every zone), K1 launched; the wall time, its share in the host spec
+     replay (models/replay.replay_spec), the dispatches, K1's launches
+     by (J, N), and the device's busy time and idle share over a traced
+     wave of 8 Services; on 1,000 nodes x 512 pods, names equal to the
+     port's oracle copy resolved from the same document (resolve_policy,
+     serial);
+  7. the extender service: filter, prioritize (one pod, 5,000 nodes,
+     2,000 existing pods) and scheduleBacklog (256 pending pods) through
+     TorchExtenderServer.handle on the card and on a CPU instance,
+     replies equal field for field; each verb's wall time, and its parts
+     timed apart (JSON parse, object decode, snapshot encode, device);
+  8. the kernels line, with the launch counts of each path it drove;
      then nvidia-smi's line, then the result line
      {"ok": true, "device": {...}}.
 
 Each path's launch counts are set to 0 just before it and read just
-after; a path that does not launch each of its kernels fails.
+after; a path that does not launch each of its kernels fails. The
+host-only references (the serial oracle of phases 5 and 6, phase 6's
+CPU runs) run from the start in three worker processes of two torch
+threads each (host_jobs), beside the card's phases.
 
 Exits non-zero, printing no result, when CUDA is not available or when
 the port's package is not beside this script.
@@ -62,6 +83,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import multiprocessing
 import os
 import statistics
 import subprocess
@@ -88,6 +110,14 @@ K3_THREADS = 256
 #: cycles of the device sleep that queued_ms puts ahead of its window
 #: (about 20 ms at the H100's clocks)
 SLEEP_CYCLES = 40_000_000
+#: (nodes, services, pods per service) of phase 6, and of its check
+#: against the serial oracle
+POLICY_SIZE = (5000, 64, 128)
+POLICY_ORACLE_SIZE = (1000, 4, 128)
+#: (nodes, template scale) of phase 5's mixed backlog
+MIXED_SIZE = (1000, 2)
+#: worker processes for host_jobs (two cores of torch each)
+HOST_WORKERS = 3
 
 
 def emit(phase: str, **kw) -> None:
@@ -191,17 +221,17 @@ def kernel_device_ms(fn, name, n=20, tries=3):
 
 def device_busy_ms(fn):
     """-> (summed device time of every kernel and copy, in ms, or None
-    when the trace shows none; wall seconds) of one traced call."""
+    when the trace shows none; wall seconds) of one traced call. The
+    trace records only the device's activity: the host's ops would add
+    their own cost to the wall (and to the idle share) and to calls that
+    launch millions of kernels."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    # the device-side events (kernels, copies) carry the device time;
-    # host ops' totals would count it a second time
     busy_us = sum(ev.self_device_time_total for ev in prof.key_averages()
                   if ev.device_type == torch.autograd.DeviceType.CUDA)
     return (busy_us / 1e3 if busy_us else None), wall
@@ -651,10 +681,27 @@ def k3_shapes_of(ZK) -> list:
             for (N, K, z), k in sorted(ZK.LAUNCHES_BY_SHAPE.items())]
 
 
-def phase_mixed(PK, ZK, T, ClusterState, GenericScheduler,
-                TorchScheduleAlgorithm, S):
-    nodes, services = S.mixed_cluster(T, 1000)
-    pods = S.mixed_backlog(T, scale=2)
+def mixed_oracle_names(n_nodes, scale):
+    """The port's serial oracle copy on phase 5's mixed backlog: ->
+    (names, seconds). Run in a worker process (host_jobs)."""
+    from kubernetes_tpu_torch.api import types as T
+    from kubernetes_tpu_torch.harness import scenarios as S
+    from kubernetes_tpu_torch.oracle import ClusterState, GenericScheduler
+
+    nodes, services = S.mixed_cluster(T, n_nodes)
+    state = ClusterState.build(nodes, services=services)
+    pods = S.mixed_backlog(T, scale=scale)
+    t0 = time.perf_counter()
+    names = GenericScheduler().schedule_backlog(pods, state)
+    return names, time.perf_counter() - t0
+
+
+def phase_mixed(PK, ZK, T, ClusterState, TorchScheduleAlgorithm, S,
+                oracle):
+    """The mixed backlog on the card against the serial oracle (oracle:
+    the AsyncResult of mixed_oracle_names)."""
+    nodes, services = S.mixed_cluster(T, MIXED_SIZE[0])
+    pods = S.mixed_backlog(T, scale=MIXED_SIZE[1])
     state = ClusterState.build(nodes, services=services)
     algo = TorchScheduleAlgorithm(device="cuda")
     reset(PK, ZK)
@@ -671,9 +718,7 @@ def phase_mixed(PK, ZK, T, ClusterState, GenericScheduler,
     if tally.get("zreplay", 0) + tally.get("zreplay_group", 0) and k3 <= 0:
         raise AssertionError("mixed backlog's device replays never "
                              "launched K3")
-    t1 = time.perf_counter()
-    want = GenericScheduler().schedule_backlog(pods, state.clone())
-    oracle_wall = time.perf_counter() - t1
+    want, oracle_wall = oracle.get()
     if names != want:
         i = next(i for i, (a, b) in enumerate(zip(names, want)) if a != b)
         raise AssertionError(
@@ -687,6 +732,264 @@ def phase_mixed(PK, ZK, T, ClusterState, GenericScheduler,
          k3_launches_by_shape=k3_shapes, unscheduled=want.count(None),
          equal_to_oracle=True)
     return launches, by_shape, k3, k3_shapes
+
+# -- phase 6: Policy files with services; phase 7: the extender service ------
+
+
+def policy_oracle_names(name, n_nodes, services, per):
+    """The port's oracle copy resolved from POLICY_DOCUMENTS[name]
+    (resolve_policy, serial) on a policy_nodes cluster and a
+    service_backlog: -> (names, seconds). Run in a worker process
+    (host_jobs), since the serial oracle takes minutes."""
+    from kubernetes_tpu_torch.api import types as T
+    from kubernetes_tpu_torch.harness import scenarios as S
+    from kubernetes_tpu_torch.oracle import ClusterState, GenericScheduler
+    # the provider registrations resolve_policy looks the keys up in
+    import kubernetes_tpu_torch.scheduler.algorithmprovider  # noqa: F401
+    from kubernetes_tpu_torch.scheduler.plugins import PluginFactoryArgs
+    from kubernetes_tpu_torch.scheduler.policy import (
+        load_policy, resolve_policy,
+    )
+
+    svcs, pods = S.service_backlog(T, services, per)
+    state = ClusterState.build(S.policy_nodes(T, n_nodes), services=svcs)
+    preds, prios = resolve_policy(
+        load_policy(json.dumps(S.POLICY_DOCUMENTS[name])),
+        PluginFactoryArgs())
+    t0 = time.perf_counter()
+    names = GenericScheduler(predicates=list(preds.items()),
+                             priorities=prios).schedule_backlog(pods, state)
+    return names, time.perf_counter() - t0
+
+
+def policy_cpu_names(name, n_nodes, services, per):
+    """POLICY_DOCUMENTS[name] through the port's load_policy ->
+    create_from_config on the CPU (device="cpu"): -> (names, seconds).
+    Run in a worker process (host_jobs)."""
+    from kubernetes_tpu_torch.api import types as T
+    from kubernetes_tpu_torch.harness import scenarios as S
+    from kubernetes_tpu_torch.oracle import ClusterState
+    from kubernetes_tpu_torch.scheduler.factory import create_from_config
+    from kubernetes_tpu_torch.scheduler.policy import load_policy
+
+    svcs, pods = S.service_backlog(T, services, per)
+    state = ClusterState.build(S.policy_nodes(T, n_nodes), services=svcs)
+    algo = create_from_config(
+        load_policy(json.dumps(S.POLICY_DOCUMENTS[name])), device="cpu")
+    t0 = time.perf_counter()
+    names = algo.schedule_backlog(pods, state)
+    return names, time.perf_counter() - t0
+
+
+def host_jobs(pool, S) -> dict:
+    """Start the run's host-only reference computations in `pool`, so
+    that they overlap the card's phases: the serial oracle of phases 5
+    and 6 and phase 6's CPU runs. -> {key: AsyncResult}."""
+    jobs = {"mixed_oracle": pool.apply_async(mixed_oracle_names,
+                                             MIXED_SIZE)}
+    for name in S.POLICY_DOCUMENTS:
+        jobs[f"policy_oracle_{name}"] = pool.apply_async(
+            policy_oracle_names, (name, *POLICY_ORACLE_SIZE))
+        jobs[f"policy_cpu_{name}"] = pool.apply_async(
+            policy_cpu_names, (name, *POLICY_SIZE))
+    return jobs
+
+
+def worker_init() -> None:
+    """A worker of host_jobs takes two of the host's cores for torch."""
+    torch.set_num_threads(2)
+
+
+class SpecTimer:
+    """Adds up the seconds spent in models/replay.replay_spec (the host
+    spec replay) while it is entered, by wrapping the module's function."""
+
+    def __init__(self, replay_mod):
+        self.mod, self.seconds, self.calls = replay_mod, 0.0, 0
+
+    def __enter__(self):
+        self.orig = orig = self.mod.replay_spec
+
+        def timed(*args, **kw):
+            t0 = time.perf_counter()
+            try:
+                return orig(*args, **kw)
+            finally:
+                self.seconds += time.perf_counter() - t0
+                self.calls += 1
+
+        self.mod.replay_spec = timed
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.replay_spec = self.orig
+
+
+def zone_spread(names, pods, zone_of) -> dict:
+    """-> {app label: {zone: pods}} of a placed service backlog."""
+    out = {}
+    for p, n in zip(pods, names):
+        per = out.setdefault(p.metadata.labels["app"], {})
+        z = zone_of.get(n)
+        per[z] = per.get(z, 0) + 1
+    return out
+
+
+def phase_policy(PK, ZK, T, ClusterState, S, TorchScheduleAlgorithm,
+                 replay_mod, jobs, traced_services=8):
+    """Both Policy documents loaded from JSON through the port's
+    load_policy -> create_from_config, at full width on the card:
+    decisions equal to the same call on the CPU, every service's pods in
+    one zone (ServiceAffinity) or in every zone (ServiceAntiAffinity
+    alone), K1 launched; on a 1,000-node, 512-pod version, decisions
+    equal to the oracle copy resolved from the same document (the CPU
+    runs and the oracle: jobs from host_jobs)."""
+    from kubernetes_tpu_torch.scheduler.factory import create_from_config
+    from kubernetes_tpu_torch.scheduler.policy import load_policy
+
+    n_nodes, services, per = POLICY_SIZE
+    small = POLICY_ORACLE_SIZE
+    nodes = S.policy_nodes(T, n_nodes)
+    svcs, pods = S.service_backlog(T, services, per)
+    state = ClusterState.build(nodes, services=svcs)
+    zone_of = {n.metadata.name: n.metadata.labels[S.POLICY_ZONE]
+               for n in nodes}
+    n_s, s_s, per_s = small
+    small_svcs, small_pods = S.service_backlog(T, s_s, per_s)
+    small_state = ClusterState.build(S.policy_nodes(T, n_s),
+                                     services=small_svcs)
+    tr_svcs, tr_pods = S.service_backlog(T, traced_services, per)
+    tr_state = ClusterState.build(nodes, services=tr_svcs)
+    out = {}
+    for name, doc in S.POLICY_DOCUMENTS.items():
+        def algo():
+            a = create_from_config(load_policy(json.dumps(doc)))
+            if not isinstance(a, TorchScheduleAlgorithm):
+                raise AssertionError(f"policy {name} left the device path")
+            return a
+
+        card = algo()
+        reset(PK, ZK)
+        torch.cuda.synchronize()
+        with SpecTimer(replay_mod) as spec:
+            t0 = time.perf_counter()
+            names = card.schedule_backlog(pods, state)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        k1, k1_shapes = PK.LAUNCHES, shapes(PK.LAUNCHES_BY_SHAPE)
+        k3 = ZK.LAUNCHES
+        tally = dict(card._wave.dispatches)
+        if k1 <= 0:
+            raise AssertionError(f"policy {name} never launched K1")
+        if any(n is None for n in names):
+            raise AssertionError(f"policy {name} left pods unplaced")
+        spread = zone_spread(names, pods, zone_of)
+        zones = set(zone_of.values())
+        for app, per_zone in spread.items():
+            if name == "services" and len(per_zone) != 1:
+                raise AssertionError(f"ServiceAffinity: {app} in {per_zone}")
+            if name == "saa" and set(per_zone) != zones:
+                raise AssertionError(f"ServiceAntiAffinity: {app} in "
+                                     f"{per_zone}")
+        gaps = [max(z.values()) - min(z.values()) for z in spread.values()]
+        cpu_names, cpu_wall = jobs[f"policy_cpu_{name}"].get()
+        if cpu_names != names:
+            i = next(i for i, (a, b) in enumerate(zip(names, cpu_names))
+                     if a != b)
+            raise AssertionError(f"policy {name}: pod {i} went to "
+                                 f"{names[i]} on the card, {cpu_names[i]} "
+                                 f"on the CPU")
+        busy_ms, traced_wall = device_busy_ms(
+            lambda: algo().schedule_backlog(tr_pods, tr_state))
+        small_names = algo().schedule_backlog(small_pods, small_state)
+        want, oracle_s = jobs[f"policy_oracle_{name}"].get()
+        if small_names != want:
+            i = next(i for i, (a, b) in enumerate(zip(small_names, want))
+                     if a != b)
+            raise AssertionError(f"policy {name} at {n_s} nodes: pod {i} "
+                                 f"went to {small_names[i]}, the oracle "
+                                 f"chose {want[i]}")
+        emit("policy", policy=name, nodes=n_nodes, services=services,
+             pods=len(pods), wall_s=wall, pods_per_s=len(pods) / wall,
+             replay_spec_s=spec.seconds, replay_spec_calls=spec.calls,
+             replay_spec_share=spec.seconds / wall, dispatches=tally,
+             k1_launches=k1, k1_launches_by_shape=k1_shapes,
+             k3_launches=k3, cpu_worker_wall_s=cpu_wall, equal_to_cpu=True,
+             traced_pods=len(tr_pods), traced_wall_s=traced_wall,
+             device_busy_ms=busy_ms,
+             device_idle_share=(None if busy_ms is None
+                                else 1.0 - busy_ms / 1e3 / traced_wall),
+             zones_per_service=sorted({len(z) for z in spread.values()}),
+             max_zone_gap=max(gaps),
+             oracle_nodes=n_s, oracle_pods=len(small_pods),
+             oracle_s=oracle_s, equal_to_oracle=True)
+        out[name] = (k1, k1_shapes)
+    return out
+
+
+def phase_extender(T, S, scheme, TorchExtenderServer, n_nodes=5000,
+                   existing=2000, pending=256):
+    """The extender service's three verbs through handle(), in process,
+    on the card and on a CPU instance: replies equal field for field;
+    each verb's wall time, then its parts timed apart (the body's JSON
+    text parsed, the API objects decoded, the snapshot encoded, the
+    device program, the reply's JSON text)."""
+    from kubernetes_tpu_torch.api.types import Pod
+    from kubernetes_tpu_torch.snapshot.encode import SnapshotEncoder
+
+    bodies = {verb: json.dumps(body) for verb, body in
+              S.extender_bodies(T, scheme, n_nodes, existing,
+                                pending).items()}
+    card = TorchExtenderServer()
+    host = TorchExtenderServer(device="cpu")
+    for verb, text in bodies.items():
+        card.handle(verb, json.loads(text))  # the first use of each op
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        code, reply = card.handle(verb, json.loads(text))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        cpu_code, cpu_reply = host.handle(verb, json.loads(text))
+        cpu_wall = time.perf_counter() - t1
+        if (code, json.dumps(reply, sort_keys=True)) != (
+                cpu_code, json.dumps(cpu_reply, sort_keys=True)):
+            raise AssertionError(f"extender {verb}: the card's reply "
+                                 f"differs from the CPU's")
+        if code != 200:
+            raise AssertionError(f"extender {verb}: status {code}")
+        parts = {}
+        t = time.perf_counter()
+        body = json.loads(text)
+        parts["json_parse_s"] = time.perf_counter() - t
+        t = time.perf_counter()
+        state = card._decode_cluster(body)
+        pods = ([card.scheme.decode(body["pod"], Pod)] if "pod" in body
+                else [card.scheme.decode(p, Pod)
+                      for p in body["pending"]["items"]])
+        parts["decode_s"] = time.perf_counter() - t
+        t = time.perf_counter()
+        snap, batch = SnapshotEncoder(state, pods,
+                                      config=card.config).encode()
+        parts["encode_s"] = time.perf_counter() - t
+        t = time.perf_counter()
+        if verb == "scheduleBacklog":
+            card._sched.schedule(snap, batch)
+        else:
+            card._sched.debug_evaluate(snap, batch)
+        torch.cuda.synchronize()
+        parts["device_s"] = time.perf_counter() - t
+        t = time.perf_counter()
+        json.dumps(reply)
+        parts["reply_json_s"] = time.perf_counter() - t
+        emit("extender", verb=verb, nodes=n_nodes, existing_pods=existing,
+             pods=len(pods), body_bytes=len(text), wall_s=wall,
+             cpu_wall_s=cpu_wall, equal_to_cpu=True,
+             placed=(sum(v is not None for v in
+                         reply["assignments"].values())
+                     if verb == "scheduleBacklog" else None),
+             passed=(len(reply["nodes"]["items"]) if verb == "filter"
+                     else None), **parts)
 
 
 def shapes(by_shape: dict) -> list:
@@ -709,17 +1012,32 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
+    from kubernetes_tpu_torch.harness import scenarios as S
+
+    # the serial oracle and phase 6's CPU runs take minutes of host time:
+    # they run in worker processes while the card works, and the pool's
+    # exit terminates them whatever happens
+    with multiprocessing.get_context("spawn").Pool(
+            HOST_WORKERS, initializer=worker_init) as pool:
+        return run(args, host_jobs(pool, S))
+
+
+def run(args, jobs) -> int:
     from kubernetes_tpu_torch.api import types as T
     from kubernetes_tpu_torch.harness import scenarios as S
     from kubernetes_tpu_torch.models import replay
     from kubernetes_tpu_torch.native.build import (
         build_cuda, build_cuda_file, ptxas_report,
     )
-    from kubernetes_tpu_torch.oracle import ClusterState, GenericScheduler
+    from kubernetes_tpu_torch.oracle import ClusterState
     from kubernetes_tpu_torch.ops import probe_kernel as PK
     from kubernetes_tpu_torch.ops import zreplay_kernel as ZK
+    from kubernetes_tpu_torch.runtime import scheme
     from kubernetes_tpu_torch.scheduler.algorithm import (
         TorchScheduleAlgorithm,
+    )
+    from kubernetes_tpu_torch.scheduler.extender_server import (
+        TorchExtenderServer,
     )
 
     kind = torch.cuda.get_device_name(0)
@@ -767,8 +1085,11 @@ def main() -> int:
     tpl_k1, tpl_k1_shapes = phase_many_templates(
         PK, T, ClusterState, TorchScheduleAlgorithm, S)
     mixed_launches, mixed_shapes, mixed_k3, mixed_k3_shapes = phase_mixed(
-        PK, ZK, T, ClusterState, GenericScheduler, TorchScheduleAlgorithm,
-        S)
+        PK, ZK, T, ClusterState, TorchScheduleAlgorithm, S,
+        jobs["mixed_oracle"])
+    policy = phase_policy(PK, ZK, T, ClusterState, S, TorchScheduleAlgorithm,
+                          replay, jobs)
+    phase_extender(T, S, scheme, TorchExtenderServer)
 
     # the density path probes J=128 over the 5,000 nodes padded to 8,192;
     # the zoned density path runs one 50,000-pick run in a 65,536 bucket
@@ -782,11 +1103,15 @@ def main() -> int:
         "launches": launches,
         "launches_by_path": {"density": launches, "zoned_density": z_k1,
                              "many_templates": tpl_k1,
-                             "mixed": mixed_launches},
+                             "mixed": mixed_launches,
+                             **{f"policy_{k}": v[0]
+                                for k, v in policy.items()}},
         "launches_by_shape": {"density": density_shapes,
                               "zoned_density": z_k1_shapes,
                               "many_templates": tpl_k1_shapes,
-                              "mixed": mixed_shapes},
+                              "mixed": mixed_shapes,
+                              **{f"policy_{k}": v[1]
+                                 for k, v in policy.items()}},
         "max_abs_err": max_err,
         "matches_plain": True,
         "ms": k1["ms"],

@@ -15,10 +15,19 @@ Layout:
                             on tensors; ops/probe_kernel.py wraps the
                             hand-written CUDA probe kernel (csrc/)
   models/                   the serial scan (batch), the wave probe
-                            (probe), the host replay (replay) and the
-                            wave driver (wave)
+                            (probe), the host replay (replay), the
+                            device replay (zreplay) and the wave driver
+                            (wave)
   scheduler/algorithm.py    TorchScheduleAlgorithm: pods + cluster
                             state -> node names
+  scheduler/                the provider registry (plugins, copied;
+                            algorithmprovider), Policy files (policy,
+                            copied), their resolution to an algorithm
+                            (factory) and the inbound scheduler-extender
+                            service (extender_server)
+  runtime/                  the API objects' JSON codec (copied)
+  hyperkube.py              `python -m kubernetes_tpu_torch.hyperkube
+                            extender`
   harness/scenarios.py      cluster and backlog builders shared by the
                             tests and chip_smoke.py
 

@@ -478,3 +478,129 @@ ZREPLAY_CASES = (
     ("edge N=300", 300, 256, {}),
     ("edge N=3000", 3000, 512, {}),
 )
+
+
+# -- Policy files with services, and the extender service ---------------------
+
+#: the node label the Policy documents name (ServiceAffinity /
+#: ServiceAntiAffinity on `zone`, LabelsPresence on `disktype`,
+#: LabelPreference on `memtype`)
+POLICY_ZONE = "zone"
+
+#: tests/test_policy_tpu.py POLICY: ServiceAffinity on zone,
+#: LabelsPresence, ServiceAntiAffinity on zone with weight 2,
+#: LabelPreference, LeastRequested and BalancedAllocation
+POLICY_SERVICES = {
+    "kind": "Policy",
+    "apiVersion": "v1",
+    "predicates": [
+        {"name": "GeneralPredicates"},
+        {"name": "PodToleratesNodeTaints"},
+        {"name": "ZoneAffinity",
+         "argument": {"serviceAffinity": {"labels": [POLICY_ZONE]}}},
+        {"name": "RequireSSD",
+         "argument": {"labelsPresence": {"labels": ["disktype"],
+                                         "presence": True}}},
+    ],
+    "priorities": [
+        {"name": "LeastRequestedPriority", "weight": 1},
+        {"name": "BalancedResourceAllocation", "weight": 1},
+        {"name": "ZoneSpread", "weight": 2,
+         "argument": {"serviceAntiAffinity": {"label": POLICY_ZONE}}},
+        {"name": "PreferDDR", "weight": 1,
+         "argument": {"labelPreference": {"label": "memtype",
+                                          "presence": True}}},
+    ],
+}
+
+#: ServiceAntiAffinity alone: each Service's pods spread over the zones
+POLICY_SAA = {
+    "kind": "Policy",
+    "apiVersion": "v1",
+    "predicates": [
+        {"name": "GeneralPredicates"},
+        {"name": "PodToleratesNodeTaints"},
+    ],
+    "priorities": [
+        {"name": "LeastRequestedPriority", "weight": 1},
+        {"name": "BalancedResourceAllocation", "weight": 1},
+        {"name": "ZoneSpread", "weight": 2,
+         "argument": {"serviceAntiAffinity": {"label": POLICY_ZONE}}},
+    ],
+}
+
+POLICY_DOCUMENTS = {"services": POLICY_SERVICES, "saa": POLICY_SAA}
+
+
+def policy_nodes(T, n, zones=("a", "b", "c"), seed=0, pods_cap="110"):
+    """density_nodes labelled for the Policy documents and for a
+    multi-zone cluster: the hostname, `zone` and the failure-domain zone
+    round-robin over `zones`, disktype=ssd on all but about one node in
+    twenty (LabelsPresence excludes those), memtype=ddr on about half
+    (LabelPreference)."""
+    rng = random.Random(seed)
+    nodes = density_nodes(T, n, pods_cap=pods_cap)
+    for i, node in enumerate(nodes):
+        labels = node.metadata.labels
+        labels[HOSTNAME] = node.metadata.name
+        labels[POLICY_ZONE] = labels[ZONE] = zones[i % len(zones)]
+        if rng.random() >= 0.05:
+            labels["disktype"] = "ssd"
+        if rng.random() < 0.5:
+            labels["memtype"] = "ddr"
+    return nodes
+
+
+def service_backlog(T, services=64, per=128, name0=""):
+    """-> (Services, pods): `services` RC templates of `per` pause pods
+    each, in FIFO order, every RC's pods selected by one Service of their
+    own (the multi-tenant shape in which operators use the service
+    policy entries)."""
+    svcs = [service(T, f"{name0}svc-{s:03d}", {"app": f"{name0}app-{s:03d}"})
+            for s in range(services)]
+    pods = []
+    for s in range(services):
+        pods += pause_pods(T, per, labels={"app": f"{name0}app-{s:03d}"},
+                           prefix=f"{name0}rc-{s:03d}")
+    return svcs, pods
+
+
+def extender_bodies(T, scheme, n_nodes=5000, existing=2000, pending=256,
+                    seed=0):
+    """-> {verb: body}: the extender service's request bodies (JSON
+    objects, encoded with `scheme`) over a policy_nodes cluster with four
+    Services: `existing` assigned pods on random nodes (members of the
+    Services and others), one member pod for filter and prioritize, and
+    `pending` pods of four RC templates for scheduleBacklog."""
+    rng = random.Random(seed)
+    nodes = policy_nodes(T, n_nodes, seed=seed)
+    svcs = [service(T, f"svc-{s}", {"app": f"app-{s}"}) for s in range(4)]
+    placed = []
+    for i in range(existing):
+        app = rng.choice(["app-0", "app-1", "app-2", "app-3", "other"])
+        cpu = rng.choice(["100m", "100m", "200m"])
+        p = pause_pods(T, 1, labels={"app": app}, name0=i, prefix="ex",
+                       requests={"cpu": cpu, "memory": "500Mi"})[0]
+        p.spec.node_name = nodes[rng.randrange(n_nodes)].metadata.name
+        placed.append(p)
+    cluster = {
+        "nodes": {"kind": "NodeList",
+                  "items": [scheme.encode(n) for n in nodes]},
+        "existingPods": [scheme.encode(p) for p in placed],
+        "services": {"items": [scheme.encode(s) for s in svcs]},
+    }
+    pod = pause_pods(T, 1, labels={"app": "app-1"}, prefix="new")[0]
+    backlog = []
+    for s in range(4):
+        backlog += pause_pods(T, pending // 4, labels={"app": f"app-{s}"},
+                              prefix=f"rc-{s}",
+                              requests={"cpu": f"{100 + 50 * s}m",
+                                        "memory": "500Mi"})
+    one = dict(cluster, pod=scheme.encode(pod))
+    return {
+        "filter": one,
+        "prioritize": one,
+        "scheduleBacklog": dict(
+            cluster, pending={"items": [scheme.encode(p) for p in backlog]},
+            lastNodeIndex=0),
+    }

@@ -15,9 +15,6 @@ The JAX package compiles the loop into one lax.scan; here it is a
 Python loop of plain torch ops that updates the carry in place and
 keeps `chosen` on the device, so a backlog costs no host sync until its
 end. A hand kernel for the step waits for a later slice.
-
-Service(Anti)Affinity policy entries (kubernetes_tpu/ops/services.py)
-are not ported yet: a config that names them raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -32,6 +29,7 @@ from kubernetes_tpu_torch.ops import interpod as IP
 from kubernetes_tpu_torch.ops import predicates as P
 from kubernetes_tpu_torch.ops import priorities as R
 from kubernetes_tpu_torch.ops import select as S
+from kubernetes_tpu_torch.ops import services as SV
 from kubernetes_tpu_torch.ops import volumes as V
 from kubernetes_tpu_torch.snapshot.carry import place, to_device
 from kubernetes_tpu_torch.snapshot.encode import (
@@ -143,14 +141,6 @@ class SchedulerConfig:
     max_gce_pd_volumes: int = 16
 
 
-def reject_services(config: SchedulerConfig) -> None:
-    """Raise on the Service(Anti)Affinity entries the port lacks."""
-    if service_config_labels(config):
-        raise NotImplementedError(
-            "ServiceAffinity/ServiceAntiAffinity are not ported to "
-            "kubernetes_tpu_torch yet")
-
-
 def interpod_carry_tables(static, ip_term_count, num_nodes):
     """cnt_lt — the per-node expansion of the inter-pod term counts
     carried between steps. Shared by the scan and the wave probe."""
@@ -178,6 +168,7 @@ def fit_mask(
     serial scan does."""
     res = carry["res"]
     num_nodes = res.shape[1]
+    svc_labels = service_config_labels(config)
 
     fit = ~pod["unschedulable"]
     if any(n == INTER_POD_AFFINITY for n, _ in config.priorities):
@@ -241,7 +232,11 @@ def fit_mask(
                 has = static[f"nl_pred_{lbl}"]
                 fit = fit & (has if entry[2] else ~has)
         elif isinstance(entry, tuple) and entry[0] == SERVICE_AFFINITY:
-            reject_services(config)
+            fit = fit & SV.service_affinity(
+                carry["svc_first_peer"], static["svc_lbl_val"],
+                static["svc_ord_node"], pod["svc_group"], pod["svc_fixed"],
+                tuple(svc_labels.index(l) for l in entry[1]), num_nodes,
+            )
     if MATCH_INTER_POD_AFFINITY in config.predicates:
         own_lt = IP.gather_lt(
             carry["ip_own_anti"], static["ip_u_topo"], static["ip_topo_dom"],
@@ -268,6 +263,7 @@ def evaluate_pod(config: SchedulerConfig, num_zones: int, num_values: int,
     res = carry["res"]
     nz_mcpu, nz_mem = res[3], res[4]
     num_nodes = res.shape[1]
+    svc_labels = service_config_labels(config)
     cnt_lt = None
     if wants_interpod(config):
         cnt_lt = interpod_carry_tables(static, carry["ip_term_count"],
@@ -320,7 +316,11 @@ def evaluate_pod(config: SchedulerConfig, num_zones: int, num_values: int,
         elif isinstance(name, tuple) and name[0] == NODE_LABEL_PRIORITY:
             s = R.node_label(static[f"nl_prio_{name[1]}"], name[2])
         elif isinstance(name, tuple) and name[0] == SERVICE_ANTI_AFFINITY:
-            reject_services(config)
+            s = SV.service_anti_affinity(
+                carry["svc_peer_node_count"], carry["svc_peer_total"],
+                static["svc_lbl_val"][svc_labels.index(name[1])],
+                pod["svc_group"], fit, num_values, num_nodes,
+            )
         else:
             raise ValueError(f"unknown priority {name!r}")
         score = score + int(weight) * s
@@ -376,6 +376,12 @@ def _scan_fn(config: SchedulerConfig, num_zones: int, num_values: int,
             t = carry[key]
             t.index_copy_(0, safe, t.index_select(0, safe)
                           | (bits & sel)[None, :])
+    if service_config_labels(config):
+        SV.service_commit(
+            carry["svc_first_peer"], carry["svc_peer_node_count"],
+            carry["svc_peer_total"], static["svc_node_ord"],
+            pod["svc_member"], chosen, scheduled,
+        )
     return carry, chosen
 
 
@@ -439,7 +445,6 @@ class BatchScheduler:
     def __init__(self, config: Optional[SchedulerConfig] = None,
                  device="cuda"):
         self.config = config or SchedulerConfig()
-        reject_services(self.config)
         self.device = torch.device(device)
 
     def place_static(self, snap: ClusterSnapshot):
@@ -486,3 +491,31 @@ class BatchScheduler:
         chosen = self.run(static, carry, pods, num_zones_of(snap),
                           int(snap.svc_num_values))
         return chosen.cpu().numpy().astype(np.int32), carry
+
+    def schedule_names(self, snap: ClusterSnapshot, batch: PodBatch):
+        """Like schedule() but returns node names (None == unschedulable)."""
+        chosen, _ = self.schedule(snap, batch)
+        return [snap.node_names[i] if i >= 0 else None for i in chosen]
+
+    def debug_evaluate(self, snap: ClusterSnapshot, batch: PodBatch):
+        """Per-(pod, node) fit and weighted score against the initial
+        carry, with no commits between pods: how the reference unit
+        tables (predicates_test.go / priorities_test.go) exercise each
+        function, and what the extender service's filter and prioritize
+        answer. Returns (fit[P, N] bool, score[P, N] int64) as numpy."""
+        static = self.place_static(snap)
+        pods = to_device(batch, self.device, self.POD_FIELDS)
+        carry = self.initial_carry(snap)
+        num_zones, num_values = num_zones_of(snap), int(snap.svc_num_values)
+        fits, scores = [], []
+        for i in range(batch.num_pods):
+            fit, score = evaluate_pod(
+                self.config, num_zones, num_values, static, carry,
+                {f: pods[f][i] for f in self.POD_FIELDS})
+            fits.append(fit)
+            scores.append(score)
+        N = snap.num_nodes
+        if not fits:
+            return np.zeros((0, N), bool), np.zeros((0, N), np.int64)
+        return (torch.stack(fits).cpu().numpy(),
+                torch.stack(scores).cpu().numpy())

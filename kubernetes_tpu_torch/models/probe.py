@@ -44,7 +44,6 @@ from kubernetes_tpu_torch.models.batch import (
     SchedulerConfig,
     fit_mask,
     interpod_carry_tables,
-    reject_services,
     wants_interpod,
     wants_ports,
     wants_resources,
@@ -195,12 +194,29 @@ def _probe_rows(config: SchedulerConfig, num_zones: int, num_values: int,
                 static[f"nl_prio_{name[1]}"], name[2]
             )
         elif isinstance(name, tuple) and name[0] == SERVICE_ANTI_AFFINITY:
-            reject_services(config)
+            pass  # per-pick renormalization: the replay consumes the
+            # svc rows below (base counts/total + host lbl_val)
         else:
             raise ValueError(f"unknown priority {name!r}")
-    # service-group rows: with no Service(Anti)Affinity in the config the
-    # group tables are zero-width, so the run has no group: zero counts
-    # and total, and an unpinned first peer
+    # service-group state rows (zero when no SA/SAA config: G == 0).
+    # row svc_counts: the run's group's per-node peer counts;
+    # row svc_total: its peer total (broadcast);
+    # row svc_pin: the group's first-peer order index (broadcast;
+    # ORD_NONE means the run's first commit will pin)
+    first_peer = carry["svc_first_peer"]
+    G = first_peer.shape[0]
+    if G:
+        g = pod["svc_group"].clamp(0, G - 1)
+        has_group = pod["svc_group"] >= 0
+        svc_counts = torch.where(has_group, carry["svc_peer_node_count"][g],
+                                 0)
+        svc_total = torch.where(has_group, carry["svc_peer_total"][g],
+                                0).expand(N)
+        svc_pin = torch.where(has_group, first_peer[g],
+                              int(ORD_NONE)).expand(N)
+    else:
+        svc_counts = svc_total = zeros
+        svc_pin = torch.full((N,), int(ORD_NONE), dtype=I64, device=dev)
     stk = torch.stack([
         fit_static.to(I64),
         frontier,
@@ -210,9 +226,9 @@ def _probe_rows(config: SchedulerConfig, num_zones: int, num_values: int,
         stk_rows["na_counts"],
         stk_rows["tt_counts"],
         stk_rows["ip_totals"],
-        zeros,
-        zeros,
-        torch.full((N,), int(ORD_NONE), dtype=I64, device=dev),
+        svc_counts,
+        svc_total,
+        svc_pin,
     ])
     return stk, tab
 
@@ -272,7 +288,6 @@ class WaveProbe:
 
     def __init__(self, config: Optional[SchedulerConfig] = None):
         self.config = config or SchedulerConfig()
-        reject_services(self.config)
 
     def probe(self, static, carry, pod, num_zones: int, num_values: int,
               J: int, rows: Optional[int] = None,

@@ -23,6 +23,15 @@ and routes it as the JAX driver does:
     CUDA kernel K3 + fold), singly or as a group threaded on the device,
     unless the caller passes replay= (then they take that host replay).
 
+Under a Policy with ServiceAffinity / ServiceAntiAffinity every
+eligible run carries a service context (svc_run_context): it takes the
+single-run probe, whose header rows then hold its service group's peer
+counts, total and first-peer pin (never the grouped probe nor the
+device replay), and the host spec replay models the first-pick pin and
+the per-pick anti-affinity renormalization; a run whose pin could move
+mid-run (sa_bail) goes to the serial scan. The fold records member
+commits in the peer tables (ops/services.service_commit_bulk).
+
 Ineligible pods fall back to the serial scan (models/batch), threading
 the same carry, so the output is bit-identical to scanning the whole
 backlog and to the oracle. `dispatches` tallies the device dispatches of
@@ -30,9 +39,9 @@ a wave with the JAX driver's keys (probe, group_probe, zreplay,
 zreplay_group, apply, scan) plus scan_pods, the pods the scan decided.
 
 Left to later slices, none of which changes a decision: the pipeline,
-packed buffers, quantized and resident tables, gangs, services, the
-mesh. The run/eligibility/group helpers below are verbatim copies of the
-JAX driver's host code, except group_buffer (see its docstring).
+packed buffers, quantized and resident tables, gangs, the mesh. The
+run/eligibility/group helpers below are verbatim copies of the JAX
+driver's host code, except group_buffer (see its docstring).
 """
 
 from __future__ import annotations
@@ -68,6 +77,7 @@ from kubernetes_tpu_torch.models.probe import (
 )
 from kubernetes_tpu_torch.models.replay import ReplayResult, replay_fast
 from kubernetes_tpu_torch.models.zreplay import ZReplay
+from kubernetes_tpu_torch.ops import services as SV
 from kubernetes_tpu_torch.snapshot.carry import place, to_device
 from kubernetes_tpu_torch.snapshot.encode import (
     ClusterSnapshot,
@@ -417,6 +427,49 @@ def pick_j(config: SchedulerConfig, max_j: int, snap: ClusterSnapshot,
     return J, min(depth, J)
 
 
+def svc_run_context(config: SchedulerConfig, snap: ClusterSnapshot,
+                    batch: PodBatch, rep: int, num_values: int):
+    """The host-side service context for one run (SA/SAA policy
+    configs): what probe.tables_from_packed needs to model the
+    ServiceAffinity first-pick pin and the ServiceAntiAffinity per-pick
+    renormalization in the replay. None when the config has no service
+    terms. Shared by the single-chip and mesh wave drivers."""
+    from kubernetes_tpu_torch.snapshot.encode import service_config_labels
+
+    svc_labels = service_config_labels(config)
+    if not svc_labels:
+        return None
+    sa_rows_idx: List[int] = []
+    saa_li, w_saa = -1, 0
+    for e in config.predicates:
+        if isinstance(e, tuple) and e[0] == "ServiceAffinity":
+            sa_rows_idx.extend(svc_labels.index(l) for l in e[1])
+    for nm, w in config.priorities:
+        if isinstance(nm, tuple) and nm[0] == "ServiceAntiAffinity":
+            saa_li = svc_labels.index(nm[1])
+            w_saa = int(w)
+    lbl_val = np.asarray(snap.svc_lbl_val)
+    g = int(batch.svc_group[rep])
+    ctx = {"w_saa": w_saa}
+    if w_saa:
+        ctx["lbl_val_row"] = lbl_val[saa_li]
+        ctx["num_values"] = num_values
+        ctx["member"] = bool(
+            g >= 0 and batch.svc_member.shape[1]
+            and batch.svc_member[rep, g]
+        )
+    if sa_rows_idx and g >= 0:
+        unres = [
+            li for li in sa_rows_idx
+            if int(batch.svc_fixed[rep, li]) < 0
+        ]
+        if unres:
+            ctx["sa_rows"] = lbl_val[unres]
+            # pin-staleness analysis needs the ord -> node row map
+            ctx["ord_node"] = np.asarray(snap.svc_ord_node)
+    return ctx
+
+
 def split_runs(rep_idx: np.ndarray,
                boundaries: Sequence[int] = ()) -> List[Tuple[int, int, int]]:
     """Maximal runs of consecutive equal representative rows:
@@ -438,16 +491,14 @@ def split_runs(rep_idx: np.ndarray,
 
 
 def classify_runs(config: SchedulerConfig, snap: ClusterSnapshot,
-                  batch: PodBatch, runs, min_run: int, *,
-                  device_zoned: bool = False,
+                  batch: PodBatch, runs, num_values: int, min_run: int,
+                  *, device_zoned: bool = False,
                   zoned: bool = False) -> List[dict]:
     """Classify every run once: eligibility, the self-anti veto, the
-    device-replay route and commit purity (whether a grouped probe's
-    host adjustments can cover its commits) — the dispatch-shape
-    contract of kubernetes_tpu/models/wave.classify_runs. Its service
-    context is absent (the port rejects ServiceAffinity/
-    ServiceAntiAffinity configs, so it would always be None), and so are
-    gang spans (gangs are not ported)."""
+    service context, the device-replay route and commit purity (whether
+    a grouped probe's host adjustments can cover its commits) — the
+    dispatch-shape contract of kubernetes_tpu/models/wave.classify_runs,
+    without its gang spans (gangs are not ported)."""
     config_ok = config_eligible(config)
     svc_free = not service_config_labels(config)
     infos: List[dict] = []
@@ -457,18 +508,21 @@ def classify_runs(config: SchedulerConfig, snap: ClusterSnapshot,
             eligible, veto = run_eligible(
                 config, batch, rep, snap, config_ok=config_ok,
             )
+        svc_ctx = svc_run_context(
+            config, snap, batch, rep, num_values
+        ) if eligible else None
         device = bool(
             eligible and device_zoned and zoned
-            and bool(batch.has_selectors[rep])
+            and bool(batch.has_selectors[rep]) and svc_ctx is None
         )
         pure = bool(
-            eligible and veto is None
+            eligible and veto is None and svc_ctx is None
             and run_pure(config, batch, rep, svc_free=svc_free)
         )
         infos.append({
             "rep": rep, "start": start, "length": length,
-            "eligible": eligible, "veto": veto, "device": device,
-            "pure": pure,
+            "eligible": eligible, "veto": veto, "svc_ctx": svc_ctx,
+            "device": device, "pure": pure,
         })
     return infos
 
@@ -618,6 +672,11 @@ class WaveScheduler:
                                       accumulate=True)
         if carry["ip_spec_total"].shape[0]:
             carry["ip_spec_total"] += pod["ip_match_spec"].to(I64) * k
+        SV.service_commit_bulk(
+            carry["svc_first_peer"], carry["svc_peer_node_count"],
+            carry["svc_peer_total"], static["svc_node_ord"],
+            pod["svc_member"], counts,
+        )
         return carry
 
     def _apply_group_fn(self, static, carry, pods, counts):
@@ -783,7 +842,13 @@ class WaveScheduler:
                     num_values, J, rows, self._apply_fn,
                     has_selectors=bool(batch.has_selectors[rep]),
                     zone_id=zone_arr, self_anti_veto=info["veto"],
+                    svc_ctx=info["svc_ctx"],
                 )
+                if tables.sa_bail:
+                    # ServiceAffinity dynamics the tables can't express
+                    # (mid-run re-pin hazard): scan the rest of the run
+                    pending.extend(range(start + done, start + length))
+                    break
                 res: ReplayResult = self._replay(
                     _permute_tables(tables, perm), K, L_host)
                 if res.n_done == 0:
@@ -874,8 +939,9 @@ class WaveScheduler:
             return carry, consumed, partial
 
         runs = split_runs(rep_idx)
-        infos = classify_runs(self.config, snap, batch, runs, self.min_run,
-                              device_zoned=self._device_zoned, zoned=zoned)
+        infos = classify_runs(self.config, snap, batch, runs, num_values,
+                              self.min_run, device_zoned=self._device_zoned,
+                              zoned=zoned)
         host_cap = _host_group_cap(N)
         idx = 0
         while idx < len(infos):

@@ -1,1 +1,4 @@
-"""The port's ScheduleAlgorithm (algorithm.TorchScheduleAlgorithm)."""
+"""The port's scheduler component: the ScheduleAlgorithm
+(algorithm.TorchScheduleAlgorithm), the provider registry (plugins,
+algorithmprovider), Policy files (policy) and their resolution (factory),
+and the inbound scheduler-extender service (extender_server)."""

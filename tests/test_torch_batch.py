@@ -48,8 +48,18 @@ def test_scan_empty_cluster():
 
 
 def test_service_policies_are_not_ported():
-    cfg = TB.SchedulerConfig(
-        predicates=(TB.GENERAL_PREDICATES,
-                    (TB.SERVICE_AFFINITY, ("zone",))))
-    with pytest.raises(NotImplementedError):
-        TB.BatchScheduler(cfg, device="cpu")
+    """Kept under its first name, from when the port raised on these
+    entries: a config naming ServiceAffinity and ServiceAntiAffinity now
+    schedules, equal to the JAX package's scan (tests/
+    test_torch_services.py holds the whole service path to it)."""
+    entries = dict(
+        predicates=(TB.GENERAL_PREDICATES, (TB.SERVICE_AFFINITY, ("zone",))),
+        priorities=((TB.LEAST_REQUESTED, 1),
+                    ((TB.SERVICE_ANTI_AFFINITY, "zone"), 2)))
+    state, pending = scenario(11, interpod_p=0.0, volumes_p=0.0)
+    cfg = JB.SchedulerConfig(**entries)
+    snap, batch, psnap, pbatch = encode(state, pending, config=cfg)
+    chosen_j, _ = JB.BatchScheduler(cfg).schedule(snap, batch)
+    chosen, _ = TB.BatchScheduler(TB.SchedulerConfig(**entries),
+                                  device="cpu").schedule(psnap, pbatch)
+    assert_same(chosen_j, chosen, "chosen")

@@ -22,6 +22,8 @@ COPIES = (
     "snapshot/__init__.py", "snapshot/encode.py", "snapshot/interpod.py",
     "snapshot/volumes.py", "snapshot/services.py", "snapshot/pad.py",
     "models/replay.py", "models/hosttab.py", "native/replay.c",
+    "scheduler/plugins.py", "scheduler/policy.py", "runtime/__init__.py",
+    "runtime/scheme.py",
 )
 #: functions the port's own modules keep verbatim from their counterparts
 FUNCTION_COPIES = {
@@ -31,13 +33,19 @@ FUNCTION_COPIES = {
                        "_lt_pernode_dom", "run_eligible", "pick_j",
                        "split_runs", "gather_batch", "_permute_tables",
                        "run_pure", "_host_group_cap", "gang_score_add",
-                       "host_group_replay"),
+                       "host_group_replay", "svc_run_context"),
+    "scheduler/algorithmprovider.py": (
+        "DEFAULT_PROVIDER_NAME", "TPU_PROVIDER_NAME",
+        "CANONICAL_PREDICATE_ORDER", "_max_pd_vols", "_register_all"),
 }
 #: functions the port keeps in another form, each with the reason its
 #: docstring records (tests/test_torch_grouped.py checks group_buffer's
-#: rows against the JAX package's packed buffer)
+#: rows against the JAX package's packed buffer; tests/test_torch_policy.py
+#: the device providers the factory registers)
 DEVIATIONS = {
     ("models/wave.py", "group_buffer"): "models/pack.py",
+    ("scheduler/algorithmprovider.py", "_tpu_algorithm_factory"):
+        "TorchScheduleAlgorithm",
 }
 
 
@@ -66,6 +74,10 @@ def test_import_leaves_jax_unloaded():
     code = (
         "import sys\n"
         "import kubernetes_tpu_torch.scheduler.algorithm\n"
+        "import kubernetes_tpu_torch.scheduler.factory\n"
+        "import kubernetes_tpu_torch.scheduler.extender_server\n"
+        "import kubernetes_tpu_torch.hyperkube\n"
+        "import kubernetes_tpu_torch.ops.services\n"
         "import kubernetes_tpu_torch.harness.scenarios\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'kubernetes_tpu')]\n"

@@ -1,6 +1,9 @@
 """The port on the card: the CUDA kernels (the probe kernel K1, the
-zoned pick loop K3) against their plain versions, and the scheduler on
-CUDA against the same call on the CPU and the port's oracle copy. Each test skips where there is no CUDA device.
+zoned pick loop K3) against their plain versions; the service ops, a
+Policy document and the extender service's verbs against the same calls
+on the CPU; and the scheduler on CUDA against the same call on the CPU
+and the port's oracle copy. Each test skips where there is no CUDA
+device.
 
 This module imports only torch and the port, so it also runs on a
 machine without JAX:
@@ -130,3 +133,94 @@ def test_zoned_scheduler_on_card_matches_cpu_and_oracle(cuda_device):
     assert got == TorchScheduleAlgorithm(device="cpu", min_run=1) \
         .schedule_backlog(pods, state)
     assert got == GenericScheduler().schedule_backlog(pods, state.clone())
+
+
+def test_service_ops_on_card_match_cpu(cuda_device):
+    """The four ops/services functions on the card against the same calls
+    on the CPU (the CPU side is held to the JAX package in
+    tests/test_torch_services.py)."""
+    import numpy as np
+
+    from kubernetes_tpu_torch.ops import services as SV
+
+    rng = np.random.default_rng(7)
+    G, L, N = 5, 2, 4096
+    tables = {
+        "first_peer": rng.integers(0, N, G), "lbl_val": rng.integers(-1, 3,
+                                                                     (L, N)),
+        "ord_node": np.concatenate([rng.permutation(N), [-1]]),
+        "pod_fixed": np.array([-1, 1]),
+        "peer_node_count": rng.integers(0, 4, (G, N)),
+        "peer_total": rng.integers(0, 4, (G, N)).sum(1) + 3,
+        "fit": rng.random(N) < 0.8, "node_ord": rng.permutation(N),
+        "member": rng.integers(0, 2, G), "counts": rng.integers(0, 3, N),
+    }
+
+    def on(device):
+        t = {k: torch.from_numpy(np.asarray(v)).to(device)
+             for k, v in tables.items()}
+        g = torch.tensor(2, device=device)
+        out = [SV.service_affinity(t["first_peer"], t["lbl_val"],
+                                   t["ord_node"], g, t["pod_fixed"],
+                                   (0, 1), N),
+               SV.service_anti_affinity(t["peer_node_count"],
+                                        t["peer_total"], t["lbl_val"][0],
+                                        g, t["fit"], 3, N)]
+        state = (t["first_peer"].clone(), t["peer_node_count"].clone(),
+                 t["peer_total"].clone())
+        SV.service_commit(*state, t["node_ord"], t["member"],
+                          torch.tensor(17, device=device),
+                          torch.tensor(True, device=device))
+        SV.service_commit_bulk(*state, t["node_ord"], t["member"],
+                               t["counts"])
+        return [x.cpu() for x in out + list(state)]
+
+    for a, b in zip(on(cuda_device), on("cpu")):
+        assert torch.equal(a, b)
+
+
+def test_policy_on_card_matches_cpu_and_oracle(cuda_device):
+    """A Policy document with ServiceAffinity and ServiceAntiAffinity,
+    loaded through the port's load_policy -> create_from_config, on the
+    card: K1 launched, decisions equal to the CPU run and to the oracle
+    copy resolved from the same document."""
+    import json
+
+    from kubernetes_tpu_torch.scheduler.factory import create_from_config
+    from kubernetes_tpu_torch.scheduler.plugins import PluginFactoryArgs
+    from kubernetes_tpu_torch.scheduler.policy import (
+        load_policy, resolve_policy,
+    )
+
+    svcs, pods = S.service_backlog(T, 3, 24)
+    state = ClusterState.build(S.policy_nodes(T, 60), services=svcs)
+    for doc in S.POLICY_DOCUMENTS.values():
+        policy = load_policy(json.dumps(doc))
+        algo = create_from_config(policy)
+        assert algo._wave.device.type == "cuda"
+        launches = PK.LAUNCHES
+        got = algo.schedule_backlog(pods, state)
+        assert PK.LAUNCHES > launches
+        assert got == create_from_config(policy, device="cpu") \
+            .schedule_backlog(pods, state)
+        preds, prios = resolve_policy(policy, PluginFactoryArgs())
+        assert got == GenericScheduler(
+            predicates=list(preds.items()), priorities=prios
+        ).schedule_backlog(pods, state.clone())
+
+
+def test_extender_verbs_on_card_match_cpu(cuda_device):
+    import json
+
+    from kubernetes_tpu_torch.runtime import scheme
+    from kubernetes_tpu_torch.scheduler.extender_server import (
+        TorchExtenderServer,
+    )
+
+    card, cpu = TorchExtenderServer(), TorchExtenderServer(device="cpu")
+    for verb, body in S.extender_bodies(T, scheme, 300, 200, 32).items():
+        text = json.dumps(body)
+        got = card.handle(verb, json.loads(text))
+        assert got[0] == 200
+        assert json.dumps(got, sort_keys=True) == json.dumps(
+            cpu.handle(verb, json.loads(text)), sort_keys=True)
