@@ -8,7 +8,8 @@ non-zero:
      reports them;
   2. build: the CUDA kernels (csrc/probe_kernel.cu, K1; csrc/
      zreplay_kernel.cu, K3, one report per template instance; csrc/
-     chain_floor.cu, K3's yardstick) built with nvcc for sm_90a from the
+     preempt_kernel.cu, K6; csrc/chain_floor.cu, K3's yardstick) built
+     with nvcc for sm_90a from the
      sources in this checkout, in parallel, with ptxas's registers, spills
      and shared memory for each;
   3. kernel vs plain: ops/probe_kernel.resource_probe (K1) on the card
@@ -31,11 +32,22 @@ non-zero:
      interface) against this checkout's, device times in turns (old, new,
      new, old) and each one's max_abs_err against the plain version, on
      every case;
+  3c. K6 vs plain: ops/preempt_kernel.victim_score against ops/preempt.
+     victim_score_plain, exact equality of needed, cost and order, on
+     scenarios.VICTIM_CASES (every slot invalid, fits now, fits only
+     after evicting every candidate, no node fits, negative priorities,
+     ties, C = 8, 32, 128, 1,024, and the gang phase's own (8,192, 32),
+     as the director builds it and as a fuzz), with the kernel's device
+     time (profiler, every launch of the trace accounted for), the bound
+     from the case's own candidates and its share, and the plain
+     version's time;
   4. main path: the scheduler_perf density shape at the north-star size
      (5,000 nodes of 4 CPU / 32Gi / 110 pods, 50,000 pause pods of
      100m / 500Mi) through TorchScheduleAlgorithm on the card; every pod
      placed, 10 per node, names equal to the same call on the CPU, and
-     the probe kernel launched (its launches counted by (J, N));
+     the probe kernel launched (its launches counted by (J, N)); the
+     encode (dedup, SnapshotEncoder, pad) timed alone on the same inputs
+     beside the wave's wall;
   4b. zoned density: the same shape over zones a/b/c with one Service
      selecting every pod, so the run takes the zoned device replay (K1 +
      K3); every pod placed, zreplay dispatches > 0, K1 and K3 launched,
@@ -65,15 +77,28 @@ non-zero:
      TorchExtenderServer.handle on the card and on a CPU instance,
      replies equal field for field; each verb's wall time, and its parts
      timed apart (JSON parse, object decode, snapshot encode, device);
-  8. the kernels line, with the launch counts of each path it drove;
+  8. gangs and priority preemption: 5,000 density nodes each holding 24
+     bound priority-0 pods of 150m / 500Mi; wave 1 of 4,096 singletons,
+     256 gangs x 16 members (4 request templates of 100-250m,
+     priorities 1-4), a gang short of its minMember and a priority-10
+     gang of 256 x 1 CPU that cannot fit, through GangDirector.plan_wave
+     -> TorchScheduleAlgorithm.schedule_backlog(gangs=) -> after_wave on
+     the card (the director plans the big gang's victims with K6 at
+     (8,192, 32)); wave 2 reruns the big gang without its victims and
+     binds it whole. Hosts, parks, statuses, victims and dispatch
+     tallies equal to the same flow on the CPU (host_jobs); no gang
+     partly placed, no victim at priority 10 or above, K1 and K6
+     launched; wall times per step and _place_gang's share;
+  9. the kernels line, with the launch counts of each path it drove;
      then nvidia-smi's line, then the result line
      {"ok": true, "device": {...}}.
 
 Each path's launch counts are set to 0 just before it and read just
 after; a path that does not launch each of its kernels fails. The
 host-only references (the serial oracle of phases 5 and 6, phase 6's
-CPU runs) run from the start in three worker processes of two torch
-threads each (host_jobs), beside the card's phases.
+CPU runs, phase 8's CPU flow) run from the start in three worker
+processes of two torch threads each (host_jobs), beside the card's
+phases.
 
 Exits non-zero, printing no result, when CUDA is not available or when
 the port's package is not beside this script.
@@ -118,6 +143,9 @@ POLICY_ORACLE_SIZE = (1000, 4, 128)
 MIXED_SIZE = (1000, 2)
 #: worker processes for host_jobs (two cores of torch each)
 HOST_WORKERS = 3
+#: phase 8: (nodes, bound priority-0 pods per node, singletons, gangs,
+#: members per gang, members of the priority-10 gang)
+GANG_SIZE = (5000, 24, 4096, 256, 16, 256)
 
 
 def emit(phase: str, **kw) -> None:
@@ -191,32 +219,41 @@ def queued_ms(fn, reps, inner) -> float:
     return statistics.median(times)
 
 
-def kernel_device_ms(fn, name, n=20, tries=3):
+def kernel_device_ms(fn, name, n=20, tries=8):
     """-> (mean device time of the kernel `name` per launch, summed device
-    time of every kernel per call of fn), in ms, over n calls of fn, from
-    the profiler's CUPTI trace. A trace that shows no device time for
-    `name` is taken again, up to `tries` traces in all (one of some fifty
-    traces in a run has come back empty); then it raises."""
+    time of every kernel per call of fn, in ms, over n calls of fn, each
+    launching `name` once, from the profiler's CUPTI trace; the launches
+    of `name` that each trace taken recorded, the kept one last). A trace
+    is kept only when it accounts for every launch: `name` recorded n
+    times and every other kernel a multiple of n times. One that falls
+    short is taken again, up to `tries` traces in all; then it raises.
+    (Traces on the H100 have kept as few as 0 of 20 launches, in phase 3
+    and after it; the rows print `traces`.)"""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
+    seen = []
     for _ in range(tries):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(n):
                 fn()
             torch.cuda.synchronize()
-        total_us, count, all_us = 0.0, 0, 0.0
+        total_us, count, all_us, whole = 0.0, 0, 0.0, True
         for ev in prof.key_averages():
             us = getattr(ev, "device_time_total", 0.0)
+            if not us:
+                continue
             all_us += us
+            whole = whole and ev.count % n == 0
             if name in ev.key:
                 total_us += us
                 count += ev.count
-        if count and total_us:
-            return total_us / count / 1e3, all_us / n / 1e3
-    raise RuntimeError(f"{tries} profiler traces show no device time for "
-                       f"{name}")
+        seen.append(count)
+        if count == n and whole:
+            return total_us / count / 1e3, all_us / n / 1e3, seen
+    raise RuntimeError(f"{tries} profiler traces of {n} launches of {name} "
+                       f"recorded {seen} of them")
 
 
 def device_busy_ms(fn):
@@ -300,13 +337,14 @@ def phase_kernel(PK, S):
         # of the frontier and the kernel); call_ms: the time of one
         # launch through the wrapper back to back (CUDA events), which
         # at these sizes is the host's launch rate
-        ms, call_device_ms = kernel_device_ms(launch,
-                                              "resource_probe_kernel")
+        ms, call_device_ms, traces = kernel_device_ms(
+            launch, "resource_probe_kernel")
         call_ms = cuda_ms(launch)
         plain_ms = cuda_ms(lambda: PK.resource_probe_plain(
             J, alloc, usage, pod, terms, wants_res=wants_res))
         bound_ms, bound_by = probe_bound_ms(J, N)
-        row = dict(ms=ms, call_device_ms=call_device_ms, call_ms=call_ms,
+        row = dict(ms=ms, call_device_ms=call_device_ms, traces=traces,
+                   call_ms=call_ms,
                    plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                    bound_share=bound_ms / ms, **PK.launch_grid(J, N))
         results.setdefault((J, N), row)
@@ -518,10 +556,83 @@ def phase_k3(ZK, S, chain_us, old_lib=None):
     return results, max_err
 
 
+# -- phase 3c: K6 against its plain version -----------------------------------
+
+
+def victim_bound_ms(prio, gang_prio) -> tuple:
+    """Least time for K6 on this case's inputs, counting only what its
+    outputs depend on. Bytes: every slot's prio read and order written
+    (8 B); a candidate's (prio < gang_prio) ord and four res rows (36 B
+    more), since an invalid slot's key is the sentinel and what it frees
+    is masked to 0; every node's free read and needed and cost written
+    (44 B); req. Operations: a sort of each row's v candidates (v log2 v
+    64-bit compares), six 64-bit prefix sums and eight 64-bit compares a
+    candidate, two int32 operations for each 64-bit one. Bytes over the
+    HBM rate, operations over the int32 rate. -> (ms, "bytes" |
+    "operations")."""
+    N, C = prio.shape
+    per_row = (prio < gang_prio).sum(dim=1).to(torch.float64)
+    valid = float(per_row.sum())
+    nbytes = N * C * 8 + valid * 36 + N * 44 + 32
+    sort = float((per_row * torch.log2(per_row.clamp(min=2))).sum())
+    ops = 2 * (sort + 14 * valid)
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = ops / INT32_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def phase_k6(VK, S, P):
+    """K6 against victim_score_plain on every scenarios.VICTIM_CASES entry,
+    exact equality of needed, cost and order, with the kernel's device
+    time (profiler; and, as a cross-check, CUDA events around launches
+    queued behind a device sleep, gaps included), the plain version's
+    (CUDA events), the bound and its share. -> ({label: row},
+    max_abs_err)."""
+    results, max_err = {}, 0
+    for seed, (label, N, C, kind) in enumerate(S.VICTIM_CASES):
+        c = S.victim_case(N, C, seed, kind)
+        args = [torch.as_tensor(c[k]).cuda()
+                for k in ("prio", "ord", "res", "free", "req")]
+        gp = c["gang_prio"]
+        got = VK.victim_score(*args, gp)
+        want = P.victim_score_plain(*args, gp)
+        torch.cuda.synchronize()
+        equal = all(a.dtype == b.dtype and torch.equal(a, b)
+                    for a, b in zip(got, want))
+        err = max(int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
+                  for a, b in zip(got, want))
+        max_err = max(max_err, err)
+        ms, _, traces = kernel_device_ms(lambda: VK._launch(*args, gp),
+                                         "victim_score_kernel")
+        events_ms = queued_ms(lambda: VK._launch(*args, gp), reps=7,
+                              inner=10)
+        plain_ms = cuda_ms(lambda: P.victim_score_plain(*args, gp), reps=7,
+                           inner=3)
+        bound_ms, bound_by = victim_bound_ms(args[0], gp)
+        row = dict(ms=ms, traces=traces, events_ms=events_ms,
+                   plain_ms=plain_ms,
+                   bound_ms=bound_ms, bound_by=bound_by,
+                   bound_share=bound_ms / ms)
+        results[label] = row
+        needed = got[0].cpu()
+        emit("k6_vs_plain", case=label, N=N, C=C, kind=kind, equal=equal,
+             max_abs_err=err, library_call="none",
+             needed_counts={str(k): v for k, v in zip(
+                 *(x.tolist() for x in torch.unique(
+                     needed, return_counts=True)))}, **row)
+        if not equal:
+            raise AssertionError(f"K6 != plain on {label}")
+    return results, max_err
+
+
 # -- phases 4 and 5: the scheduler -------------------------------------------
 
 
 def phase_main_path(PK, ZK, T, ClusterState, TorchScheduleAlgorithm, S):
+    from kubernetes_tpu_torch.snapshot.encode import SnapshotEncoder
+    from kubernetes_tpu_torch.snapshot.pad import next_pow2, pad_snapshot
+
     n_nodes, n_pods = 5000, 50000
     nodes = S.density_nodes(T, n_nodes)
     pods = S.pause_pods(T, n_pods)
@@ -551,6 +662,15 @@ def phase_main_path(PK, ZK, T, ClusterState, TorchScheduleAlgorithm, S):
         raise AssertionError("main path did not place 10 pods per node")
     if launches <= 0:
         raise AssertionError("main path never launched the probe kernel")
+    # the host split: the encode alone (dedup, SnapshotEncoder, node-axis
+    # pad) on the same inputs, beside the wave's wall
+    t1 = time.perf_counter()
+    reps, _rep_idx = algo._dedup(pods)
+    enc = SnapshotEncoder(state, reps, config=algo._wave.config)
+    snap = enc.encode_nodes()
+    enc.encode_pods()
+    pad_snapshot(snap, next_pow2(snap.num_nodes, 64))
+    encode_s = time.perf_counter() - t1
     t1 = time.perf_counter()
     cpu_names = TorchScheduleAlgorithm(device="cpu").schedule_backlog(
         pods, state)
@@ -561,6 +681,7 @@ def phase_main_path(PK, ZK, T, ClusterState, TorchScheduleAlgorithm, S):
         lambda: TorchScheduleAlgorithm(device="cuda").schedule_backlog(
             pods, state))
     emit("main_path", nodes=n_nodes, pods=n_pods, wall_s=wall,
+         encode_s=encode_s, encode_share=encode_s / wall,
          cold_wall_s=cold_wall, traced_wall_s=traced_wall,
          device_busy_ms=busy_ms,
          device_idle_share=(None if busy_ms is None
@@ -784,7 +905,8 @@ def policy_cpu_names(name, n_nodes, services, per):
 def host_jobs(pool, S) -> dict:
     """Start the run's host-only reference computations in `pool`, so
     that they overlap the card's phases: the serial oracle of phases 5
-    and 6 and phase 6's CPU runs. -> {key: AsyncResult}."""
+    and 6, phase 6's CPU runs and phase 8's CPU flow. -> {key:
+    AsyncResult}."""
     jobs = {"mixed_oracle": pool.apply_async(mixed_oracle_names,
                                              MIXED_SIZE)}
     for name in S.POLICY_DOCUMENTS:
@@ -792,6 +914,7 @@ def host_jobs(pool, S) -> dict:
             policy_oracle_names, (name, *POLICY_ORACLE_SIZE))
         jobs[f"policy_cpu_{name}"] = pool.apply_async(
             policy_cpu_names, (name, *POLICY_SIZE))
+    jobs["gang_cpu"] = pool.apply_async(gang_cpu_flow, (GANG_SIZE,))
     return jobs
 
 
@@ -800,15 +923,15 @@ def worker_init() -> None:
     torch.set_num_threads(2)
 
 
-class SpecTimer:
-    """Adds up the seconds spent in models/replay.replay_spec (the host
-    spec replay) while it is entered, by wrapping the module's function."""
+class Stopwatch:
+    """Adds up the seconds spent in obj.<name> (a module's function or an
+    instance's method) while it is entered, by wrapping the attribute."""
 
-    def __init__(self, replay_mod):
-        self.mod, self.seconds, self.calls = replay_mod, 0.0, 0
+    def __init__(self, obj, name):
+        self.obj, self.name, self.seconds, self.calls = obj, name, 0.0, 0
 
     def __enter__(self):
-        self.orig = orig = self.mod.replay_spec
+        self.orig = orig = getattr(self.obj, self.name)
 
         def timed(*args, **kw):
             t0 = time.perf_counter()
@@ -818,11 +941,11 @@ class SpecTimer:
                 self.seconds += time.perf_counter() - t0
                 self.calls += 1
 
-        self.mod.replay_spec = timed
+        setattr(self.obj, self.name, timed)
         return self
 
     def __exit__(self, *exc):
-        self.mod.replay_spec = self.orig
+        setattr(self.obj, self.name, self.orig)
 
 
 def zone_spread(names, pods, zone_of) -> dict:
@@ -871,7 +994,7 @@ def phase_policy(PK, ZK, T, ClusterState, S, TorchScheduleAlgorithm,
         card = algo()
         reset(PK, ZK)
         torch.cuda.synchronize()
-        with SpecTimer(replay_mod) as spec:
+        with Stopwatch(replay_mod, "replay_spec") as spec:
             t0 = time.perf_counter()
             names = card.schedule_backlog(pods, state)
             torch.cuda.synchronize()
@@ -992,6 +1115,149 @@ def phase_extender(T, S, scheme, TorchExtenderServer, n_nodes=5000,
                      else None), **parts)
 
 
+# -- phase 8: gangs and priority preemption ----------------------------------
+
+
+def gang_flow(device, n_nodes, per_node, singles, gangs, members, big,
+              on_cycle=None):
+    """The gang phase's director flow on `device`: a bound_cluster of
+    n_nodes nodes holding per_node priority-0 pods each and a gang_wave;
+    wave 1 through GangDirector.plan_wave -> TorchScheduleAlgorithm.
+    schedule_backlog(gangs=) -> after_wave (the priority-10 gang parks and
+    the director plans its victims); wave 2 reruns that gang on the wave-1
+    state without its victims. on_cycle(), when given, is called just
+    before wave 1 (the card's run resets its launch counts there).
+    -> {"waves": [director_wave outcome, ...], "statuses", "victims"
+    (names), "victim_priorities", "dispatches": [per wave], "timings":
+    [per wave], "place_gang_s", "score_s", "build_s"}."""
+    from kubernetes_tpu_torch.api import types as T
+    from kubernetes_tpu_torch.harness import scenarios as S
+    from kubernetes_tpu_torch.oracle import ClusterState
+    from kubernetes_tpu_torch.scheduler import gang as G
+    from kubernetes_tpu_torch.scheduler.algorithm import (
+        TorchScheduleAlgorithm,
+    )
+
+    t0 = time.perf_counter()
+    nodes, bound = S.bound_cluster(T, n_nodes, per_node)
+    state = ClusterState.build(nodes, assigned_pods=bound)
+    wave, groups = S.gang_wave(T, singles, gangs, members, big)
+    big_pods = [p for p in wave
+                if p.metadata.labels.get(T.POD_GROUP_LABEL) == "big"]
+    build_s = time.perf_counter() - t0
+    statuses, evicted = [], []
+    director = S.gang_director(G, groups, statuses, evicted, device=device)
+    algo = TorchScheduleAlgorithm(device=device)
+    out = {"waves": [], "dispatches": [], "timings": []}
+    if on_cycle is not None:
+        on_cycle()
+    with Stopwatch(G, "_place_gang") as place, \
+            Stopwatch(director._scorer, "score") as score:
+        for pods, st in ((wave, state), (big_pods, None)):
+            if st is None:
+                st = S.evict(state, evicted)
+            # the wave returns host lists, so its time includes the card's
+            with Stopwatch(director, "plan_wave") as plan, \
+                    Stopwatch(algo, "schedule_backlog") as sched, \
+                    Stopwatch(director, "after_wave") as after:
+                t0 = time.perf_counter()
+                out["waves"].append(S.director_wave(director, algo, pods,
+                                                    st))
+                cycle_s = time.perf_counter() - t0
+            out["timings"].append({
+                "plan_s": plan.seconds, "wave_s": sched.seconds,
+                "after_s": after.seconds, "cycle_s": cycle_s})
+            out["dispatches"].append(dict(algo._wave.dispatches))
+    pg_map = director._pg_map()
+    out.update(statuses=statuses,
+               victims=[v.metadata.name for v in evicted],
+               victim_priorities=sorted({director._priority_of(v, pg_map)
+                                         for v in evicted}),
+               place_gang_s=place.seconds, place_gang_calls=place.calls,
+               score_s=score.seconds, score_calls=score.calls,
+               build_s=build_s)
+    return out
+
+
+def gang_cpu_flow(size):
+    """gang_flow on the CPU (device="cpu"), run in a worker process
+    (host_jobs): -> (its result, seconds)."""
+    t0 = time.perf_counter()
+    out = gang_flow("cpu", *size)
+    return out, time.perf_counter() - t0
+
+
+def check_gangs(out, size):
+    """The gang phase's own checks on one flow's result: the short gang
+    parks before the wave, no gang is partly placed, the priority-10 gang
+    parks in wave 1 with victims planned (none at priority 10 or above)
+    and binds whole in wave 2. -> the number of gangs placed in wave 1."""
+    big = size[-1]
+    w1, w2 = out["waves"]
+    if not any(n.startswith("short-") for n, _r in w1["parked"]):
+        raise AssertionError("the short gang did not park before the wave")
+    placed = 0
+    for start, length, key, _prio in w1["layout"]:
+        span = w1["hosts"][start:start + length]
+        if None in span and any(h is not None for h in span):
+            raise AssertionError(f"gang {key} partly placed")
+        if key[1] == "big" and None not in span:
+            raise AssertionError("the priority-10 gang fit without preemption")
+        placed += None not in span
+    if not out["victims"] or max(out["victim_priorities"]) >= 10:
+        raise AssertionError(f"victims {len(out['victims'])} at priorities "
+                             f"{out['victim_priorities']}")
+    if len(w2["hosts"]) != big or None in w2["hosts"] or w2["errors"]:
+        raise AssertionError("the priority-10 gang did not bind whole after "
+                             "the evictions")
+    return placed
+
+
+def phase_gangs(PK, VK, jobs):
+    """Phase 8: gang_flow on the card against the same flow on the CPU
+    (jobs["gang_cpu"]): equal waves (backlog, layout, parks, hosts,
+    errors), statuses, victims and dispatch tallies; the gang checks;
+    K1 and K6 launched. -> (K1 launches, K1 shapes, K6 launches, K6
+    shapes)."""
+    def reset_counts():
+        reset(PK, VK)
+        torch.cuda.synchronize()
+
+    out = gang_flow("cuda", *GANG_SIZE, on_cycle=reset_counts)
+    k1, k1_shapes = PK.LAUNCHES, shapes(PK.LAUNCHES_BY_SHAPE)
+    k6 = VK.LAUNCHES
+    k6_shapes = [{"N": N, "C": C, "launches": k}
+                 for (N, C), k in sorted(VK.LAUNCHES_BY_SHAPE.items())]
+    if k1 <= 0 or k6 <= 0:
+        raise AssertionError(f"the gang path launched K1 {k1}, K6 {k6} times")
+    placed = check_gangs(out, GANG_SIZE)
+    cpu, cpu_s = jobs["gang_cpu"].get()
+    for key in ("waves", "statuses", "victims", "dispatches"):
+        if out[key] != cpu[key]:
+            raise AssertionError(f"gang phase: the card's {key} differ from "
+                                 f"the CPU run's")
+    n_nodes, per_node, singles, gangs, members, big = GANG_SIZE
+    host_s = sum(t["plan_s"] + t["after_s"] for t in out["timings"])
+    cycle_s = sum(t["cycle_s"] for t in out["timings"])
+    emit("gangs", nodes=n_nodes, bound_pods=n_nodes * per_node,
+         singletons=singles, gangs=gangs, members=members, big_members=big,
+         wave_pods=len(out["waves"][0]["backlog"]),
+         parked_before_wave=len(out["waves"][0]["parked"]),
+         gangs_placed=placed, victims=len(out["victims"]),
+         victim_priorities=out["victim_priorities"],
+         timings=out["timings"], cycle_s=cycle_s, director_host_s=host_s,
+         place_gang_s=out["place_gang_s"],
+         place_gang_calls=out["place_gang_calls"],
+         place_gang_share_of_director_host=out["place_gang_s"] / host_s,
+         place_gang_share_of_cycle=out["place_gang_s"] / cycle_s,
+         victim_score_s=out["score_s"], victim_score_calls=out["score_calls"],
+         build_s=out["build_s"], dispatches=out["dispatches"],
+         k1_launches=k1, k1_launches_by_shape=k1_shapes, k6_launches=k6,
+         k6_launches_by_shape=k6_shapes, cpu_worker_wall_s=cpu_s,
+         cpu_timings=cpu["timings"], equal_to_cpu=True)
+    return k1, k1_shapes, k6, k6_shapes
+
+
 def shapes(by_shape: dict) -> list:
     """K1's {(J, N): launches} -> [{"J", "N", "G", "launches"}, ...] in
     order. K1 has no run axis: the grouped probe launches it once per run
@@ -1030,6 +1296,8 @@ def run(args, jobs) -> int:
         build_cuda, build_cuda_file, ptxas_report,
     )
     from kubernetes_tpu_torch.oracle import ClusterState
+    from kubernetes_tpu_torch.ops import preempt as P
+    from kubernetes_tpu_torch.ops import preempt_kernel as VK
     from kubernetes_tpu_torch.ops import probe_kernel as PK
     from kubernetes_tpu_torch.ops import zreplay_kernel as ZK
     from kubernetes_tpu_torch.runtime import scheme
@@ -1047,19 +1315,24 @@ def run(args, jobs) -> int:
          cuda=torch.version.cuda)
 
     # one nvcc per kernel source, all started together
-    builds = [PK.build, ZK.build, lambda: build_cuda("chain_floor")]
+    builds = [PK.build, ZK.build, VK.build,
+              lambda: build_cuda("chain_floor")]
     if args.baseline_k3:
         builds.append(lambda: build_cuda_file(
             os.path.abspath(args.baseline_k3), "zreplay_kernel_baseline"))
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(builds)) as pool:
-        k1_lib, k3_lib, chain_lib, *old_k3 = pool.map(lambda f: f(), builds)
+        k1_lib, k3_lib, k6_lib, chain_lib, *old_k3 = pool.map(
+            lambda f: f(), builds)
     k3_ptxas = k3_reports(k3_lib)
-    emit("build", kernels=["resource_probe", "zreplay", "chain_floor"],
+    k6_ptxas = ptxas_report(k6_lib, "victim_score_kernel")
+    emit("build", kernels=["resource_probe", "zreplay", "victim_score",
+                           "chain_floor"],
          seconds=time.perf_counter() - t0,
          ptxas={"resource_probe": ptxas_report(k1_lib,
                                                "resource_probe_kernel"),
                 "zreplay": k3_ptxas,
+                "victim_score": k6_ptxas,
                 "chain_floor": {
                     f"threads={n}": ptxas_report(
                         chain_lib, f"chain_floor_kernelILi{n}E")
@@ -1077,6 +1350,7 @@ def run(args, jobs) -> int:
              ptxas=ptxas_report(old_k3[0], "zreplay_kernel"),
              new_ptxas=k3_ptxas)
     k3_times, k3_err = phase_k3(ZK, S, chain_us[K3_THREADS], old_lib)
+    k6_times, k6_err = phase_k6(VK, S, P)
     launches, density_shapes = phase_main_path(
         PK, ZK, T, ClusterState, TorchScheduleAlgorithm, S)
     z_k1, z_k1_shapes, z_k3, z_k3_shapes = phase_zoned_density(
@@ -1090,11 +1364,16 @@ def run(args, jobs) -> int:
     policy = phase_policy(PK, ZK, T, ClusterState, S, TorchScheduleAlgorithm,
                           replay, jobs)
     phase_extender(T, S, scheme, TorchExtenderServer)
+    gang_k1, gang_k1_shapes, gang_k6, gang_k6_shapes = phase_gangs(
+        PK, VK, jobs)
 
     # the density path probes J=128 over the 5,000 nodes padded to 8,192;
     # the zoned density path runs one 50,000-pick run in a 65,536 bucket
     k1 = times[(128, 8192)]
     k3 = k3_times["main N=8192 K=65536"]
+    # the gang phase's victim table: 5,000 nodes padded to 8,192 rows of
+    # 24 candidates in a 32 bucket
+    k6 = k6_times["gang phase N=8192 C=32"]
     print(json.dumps({"kernels": [{
         "name": "resource_probe",
         "route": "cuda",
@@ -1105,13 +1384,15 @@ def run(args, jobs) -> int:
                              "many_templates": tpl_k1,
                              "mixed": mixed_launches,
                              **{f"policy_{k}": v[0]
-                                for k, v in policy.items()}},
+                                for k, v in policy.items()},
+                             "gangs": gang_k1},
         "launches_by_shape": {"density": density_shapes,
                               "zoned_density": z_k1_shapes,
                               "many_templates": tpl_k1_shapes,
                               "mixed": mixed_shapes,
                               **{f"policy_{k}": v[1]
-                                 for k, v in policy.items()}},
+                                 for k, v in policy.items()},
+                              "gangs": gang_k1_shapes},
         "max_abs_err": max_err,
         "matches_plain": True,
         "ms": k1["ms"],
@@ -1147,6 +1428,25 @@ def run(args, jobs) -> int:
         "chain_floor_us_by_threads": chain_us,
         "node_picks": k3["node_picks"],
         "ptxas": k3_ptxas,
+        "library_ms": None,
+    }, {
+        "name": "victim_score",
+        "route": "cuda",
+        "source": "kubernetes_tpu_torch/csrc/preempt_kernel.cu",
+        "replaces": "kubernetes_tpu/ops/preempt.py:42",
+        "launches": gang_k6,
+        "launches_by_path": {"gangs": gang_k6},
+        "launches_by_shape": {"gangs": gang_k6_shapes},
+        "max_abs_err": k6_err,
+        "matches_plain": True,
+        "ms": k6["ms"],
+        "traces": k6["traces"],
+        "events_ms": k6["events_ms"],
+        "plain_ms": k6["plain_ms"],
+        "bound_ms": k6["bound_ms"],
+        "bound_by": k6["bound_by"],
+        "bound_share": k6["bound_share"],
+        "ptxas": k6_ptxas,
         "library_ms": None,
     }]}), flush=True)
     print(smi, flush=True)

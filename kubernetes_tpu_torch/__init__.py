@@ -12,8 +12,9 @@ Layout:
   native/                   the host replay engine (replay.c) and the
                             on-demand builds of the port's native code
   ops/                      predicate, priority and selection functions
-                            on tensors; ops/probe_kernel.py wraps the
-                            hand-written CUDA probe kernel (csrc/)
+                            on tensors; ops/probe_kernel.py,
+                            zreplay_kernel.py and preempt_kernel.py wrap
+                            the hand-written CUDA kernels (csrc/)
   models/                   the serial scan (batch), the wave probe
                             (probe), the host replay (replay), the
                             device replay (zreplay) and the wave driver
@@ -23,8 +24,10 @@ Layout:
   scheduler/                the provider registry (plugins, copied;
                             algorithmprovider), Policy files (policy,
                             copied), their resolution to an algorithm
-                            (factory) and the inbound scheduler-extender
-                            service (extender_server)
+                            (factory), the inbound scheduler-extender
+                            service (extender_server) and the gang
+                            director with priority preemption (gang)
+  metrics/                  the scheduler's counters (copied)
   runtime/                  the API objects' JSON codec (copied)
   hyperkube.py              `python -m kubernetes_tpu_torch.hyperkube
                             extender`

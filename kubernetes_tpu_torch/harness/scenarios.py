@@ -604,3 +604,209 @@ def extender_bodies(T, scheme, n_nodes=5000, existing=2000, pending=256,
             cluster, pending={"items": [scheme.encode(p) for p in backlog]},
             lastNodeIndex=0),
     }
+
+
+# -- gangs and priority preemption --------------------------------------------
+
+def pod_group(T, name, min_member=1, priority=0, workload_class=""):
+    """A PodGroup (the gang's object) in the default namespace."""
+    return T.PodGroup(
+        metadata=T.ObjectMeta(name=name),
+        spec=T.PodGroupSpec(min_member=min_member, priority=priority,
+                            workload_class=workload_class))
+
+
+def gang_members(T, group, n, cpu="100m", mem="500Mi", name0=0, ts=None):
+    """n identical members of gang `group` (the pod-group label, and app
+    = the group's name), creation timestamp ts when given."""
+    pods = pause_pods(T, n, labels={T.POD_GROUP_LABEL: group, "app": group},
+                      requests={"cpu": cpu, "memory": mem}, name0=name0,
+                      prefix=group)
+    for p in pods:
+        p.metadata.creation_timestamp = ts
+    return pods
+
+
+def bound_cluster(T, n_nodes, per_node=24, cpu="150m", mem="500Mi",
+                  group=None):
+    """-> (nodes, bound pods): density_nodes, each holding `per_node`
+    bound pods of cpu / mem (members of `group` when given, else
+    priority-0 pods of no gang), with creation timestamps that do not
+    follow their names, so that the director's newest-first order is
+    not the name order."""
+    nodes = density_nodes(T, n_nodes)
+    labels = ({T.POD_GROUP_LABEL: group, "app": group} if group
+              else {"app": "filler"})
+    bound = []
+    for i, node in enumerate(nodes):
+        for k in range(per_node):
+            p = pause_pods(T, 1, labels=labels,
+                           requests={"cpu": cpu, "memory": mem},
+                           name0=i * per_node + k, prefix="bound")[0]
+            s = (i * 7919 + k * 104729) % 86400
+            p.metadata.creation_timestamp = (
+                f"2026-01-01T{s // 3600:02d}:{s // 60 % 60:02d}:"
+                f"{s % 60:02d}Z")
+            p.spec.node_name = node.metadata.name
+            bound.append(p)
+    return nodes, bound
+
+
+def gang_wave(T, singles=4096, gangs=256, members=16, big=256,
+              big_cpu="1", big_priority=10, short=12):
+    """-> (wave, pod groups): a wave of `singles` pause pods (100m /
+    500Mi), `gangs` gangs of `members` (minMember = members) in four
+    request templates of 100-250m, priorities 1-4, one gang `short` of
+    `short` members against a minMember of `members` (it parks before
+    the wave), and one gang `big` of `big` members of big_cpu at
+    big_priority (minMember = big). Gang members arrive after the
+    singletons, the big gang in the middle of the gangs."""
+    wave = pause_pods(T, singles, prefix="single")
+    groups = []
+    for g in range(gangs):
+        name = f"gang-{g:04d}"
+        groups.append(pod_group(T, name, members, 1 + (g // 4) % 4))
+        wave += gang_members(T, name, members, cpu=f"{100 + 50 * (g % 4)}m")
+        if g == gangs // 2 and big:
+            groups.append(pod_group(T, "big", big, big_priority))
+            wave += gang_members(T, "big", big, cpu=big_cpu)
+    if short:
+        groups.append(pod_group(T, "short", members, 5))
+        wave += gang_members(T, "short", short)
+    return wave, groups
+
+
+def gang_director(G, pod_groups, statuses, evicted, **kw):
+    """A GangDirector of the gang module G (either package's) over a
+    fixed PodGroup list, appending (namespace, name, status) to statuses
+    and its victims to evicted."""
+    return G.GangDirector(
+        pod_group_lister=lambda: list(pod_groups),
+        status_updater=lambda ns, name, st: statuses.append(
+            (ns, name, dict(st))),
+        preemptor=evicted.extend, **kw)
+
+
+def director_wave(director, algo, wave, state) -> dict:
+    """One scheduling cycle as the scheduler's control loop runs it
+    (kubernetes_tpu/scheduler/core.py): plan_wave, the wave with its
+    gang layout, after_wave. -> {"backlog": names, "layout": [(start,
+    length, key, priority)], "parked": [(name, reason)], "hosts",
+    "errors": {backlog index: reason}}."""
+    backlog, layout, parked = director.plan_wave(wave, state)
+    hosts = (algo.schedule_backlog(backlog, state, gangs=layout or None)
+             if backlog else [])
+    errors = {}
+    if layout:
+        hosts, errors = director.after_wave(backlog, list(hosts), layout,
+                                            state)
+    return {
+        "backlog": [p.metadata.name for p in backlog],
+        "layout": [(g["start"], g["length"], g["key"], g["priority"])
+                   for g in layout],
+        "parked": [(p.metadata.name, str(e)) for p, e in parked],
+        "hosts": list(hosts),
+        "errors": {i: str(e) for i, e in sorted(errors.items())},
+    }
+
+
+def evict(state, victims):
+    """A clone of state without the victims (their nodes' accounting
+    released)."""
+    out = state.clone()
+    for v in victims:
+        out.node_infos[v.spec.node_name].remove_pod(v)
+    return out
+
+
+def victim_case(N, C, seed, kind="fuzz"):
+    """-> {"prio", "ord", "res", "free", "req", "gang_prio"}: numpy
+    inputs of the victim scorer (ops/preempt.py) at (N, C). Kinds:
+    fuzz (random tiers, 30% unused slots, random ordinals); all_invalid
+    (every slot unused or at the gang's priority or above); fits_now
+    (every node fits a member already); evict_all (a node fits only
+    after evicting all of its candidates); none_fit (no node fits even
+    evicting everything); negative (negative priorities and a gang
+    priority at or below 1); ties (one tier, ordinals repeated: the
+    column order breaks ties); density (the director's table of
+    bound_cluster nodes, 24 priority-0 pods of 150m / 500Mi each,
+    against a 1-CPU member at priority 10; the rows past 5,000 of 8,192,
+    in proportion, left as pack_candidates pads them)."""
+    import numpy as np
+
+    from kubernetes_tpu_torch.ops.preempt import INVALID_PRIO
+
+    rng = np.random.RandomState(seed)
+    prio = rng.randint(0, 5, (N, C)).astype(np.int32)
+    ordn = rng.permutation(N * C).reshape(N, C).astype(np.int32)
+    res = rng.randint(0, 4, (N, C, 4)).astype(np.int64) * 250
+    free = rng.randint(0, 4, (N, 4)).astype(np.int64) * 250
+    req = np.array([500, 250, 0, 1], np.int64)
+    gang_prio = int(rng.randint(1, 6))
+    if kind == "fuzz":
+        prio[rng.rand(N, C) < 0.3] = INVALID_PRIO
+        ordn = rng.randint(-2**31, 2**31 - 1, (N, C)).astype(np.int32)
+    elif kind == "all_invalid":
+        prio = np.where(rng.rand(N, C) < 0.5, INVALID_PRIO,
+                        gang_prio + rng.randint(0, 3, (N, C))).astype(
+                            np.int32)
+    elif kind == "fits_now":
+        free = req[None, :] + rng.randint(0, 3, (N, 4)) * 100
+    elif kind == "evict_all":
+        res = rng.randint(1, 5, (N, C, 4)).astype(np.int64) * 100
+        prio = np.minimum(prio, gang_prio - 1).astype(np.int32)
+        free = req[None, :] - res.sum(axis=1)
+    elif kind == "none_fit":
+        req = np.array([1 << 40, 250, 0, 1], np.int64)
+    elif kind == "negative":
+        prio = rng.randint(-100, 0, (N, C)).astype(np.int32)
+        prio[rng.rand(N, C) < 0.2] = INVALID_PRIO
+        gang_prio = int(rng.randint(-50, 2))
+    elif kind == "ties":
+        prio[:] = 1
+        gang_prio = 2
+        ordn = rng.randint(0, 3, (N, C)).astype(np.int32)
+    elif kind == "density":
+        per = min(24, C)
+        prio = np.full((N, C), INVALID_PRIO, np.int32)
+        prio[:, :per] = 0
+        ordn = np.zeros((N, C), np.int32)
+        ordn[:, :per] = rng.permutation(N * per).reshape(N, per)
+        res = np.zeros((N, C, 4), np.int64)
+        res[:, :per] = (150, 500 << 20, 0, 1)
+        free = np.tile(np.array([4000 - 150 * per, (32 << 30) -
+                                 per * (500 << 20), 0, 110 - per],
+                                np.int64), (N, 1))
+        req = np.array([1000, 500 << 20, 0, 1], np.int64)
+        gang_prio = 10
+        real = max(1, N * 5000 // 8192)
+        prio[real:] = INVALID_PRIO
+        ordn[real:] = 0
+        res[real:] = 0
+        free[real:] = 0
+    else:
+        raise ValueError(f"victim_case: unknown kind {kind!r}")
+    return {"prio": prio, "ord": ordn, "res": res.astype(np.int64),
+            "free": free.astype(np.int64), "req": req,
+            "gang_prio": gang_prio}
+
+
+#: (label, N, C, kind) of the victim scorer's checks: the kernel against
+#: its plain version on the card (chip_smoke phase 3c), the plain version
+#: against the JAX package's on the CPU (tests, N cut to 256). The gang
+#: phase's shape comes twice: as the director builds it (every real row
+#: alike) and as a fuzz, so that varied rows meet the kernel there too
+VICTIM_CASES = (
+    ("fuzz C=8", 64, 8, "fuzz"),
+    ("fuzz C=32", 1024, 32, "fuzz"),
+    ("fuzz C=128", 256, 128, "fuzz"),
+    ("fuzz C=1024", 64, 1024, "fuzz"),
+    ("all invalid", 64, 8, "all_invalid"),
+    ("fits now", 64, 8, "fits_now"),
+    ("evict all", 128, 32, "evict_all"),
+    ("no node fits", 64, 32, "none_fit"),
+    ("negative priorities", 256, 32, "negative"),
+    ("ties", 64, 16, "ties"),
+    ("gang phase N=8192 C=32", 8192, 32, "density"),
+    ("fuzz at the gang shape N=8192 C=32", 8192, 32, "fuzz"),
+)

@@ -1,0 +1,956 @@
+"""Counters, gauges, and histograms with Prometheus text rendering.
+
+Copy of kubernetes_tpu/metrics/metrics.py: only the import package differs."""
+
+from __future__ import annotations
+
+import bisect
+import threading
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
+
+
+def exponential_buckets(start: float, factor: float, count: int) -> List[float]:
+    """prometheus.ExponentialBuckets — the scheduler uses
+    (1000, 2, 15) microseconds: 1ms .. ~16s (metrics.go:36)."""
+    out = []
+    v = start
+    for _ in range(count):
+        out.append(v)
+        v *= factor
+    return out
+
+
+class _Metric:
+    def __init__(self, name: str, help_: str,
+                 label_bound: Optional[int] = None):
+        self.name = name
+        self.help = help_
+        #: declared series-cardinality bound for metrics whose label
+        #: values are caller-controlled or otherwise unbounded (flow
+        #: keys, node names). tests/test_metrics_lint.py requires it
+        #: at every dynamic-label call site, and the telemetry TSDB
+        #: enforces the same cap at scrape time
+        #: (telemetry_series_dropped_total).
+        self.label_bound = label_bound
+        self._lock = threading.Lock()
+
+    def render(self) -> str:
+        raise NotImplementedError
+
+
+class Counter(_Metric):
+    def __init__(self, name: str, help_: str = "",
+                 label_bound: Optional[int] = None):
+        super().__init__(name, help_, label_bound=label_bound)
+        self._values: Dict[Tuple[Tuple[str, str], ...], float] = {}
+
+    def inc(self, amount: float = 1.0, **labels: str) -> None:
+        key = tuple(sorted(labels.items()))
+        with self._lock:
+            self._values[key] = self._values.get(key, 0.0) + amount
+
+    def get(self, **labels: str) -> float:
+        key = tuple(sorted(labels.items()))
+        with self._lock:
+            return self._values.get(key, 0.0)
+
+    def total(self) -> float:
+        """Sum across every label set (the all-verbs request count the
+        soak harness diffs; get() reads one label set only)."""
+        with self._lock:
+            return sum(self._values.values())
+
+    def child(self, **labels: str) -> "Callable[..., None]":
+        """A bound fast-path incrementer with the label key pre-built —
+        per-event hot paths (workqueue adds, watch events) pay one dict
+        update under the lock instead of a sort+tuple per call."""
+        key = tuple(sorted(labels.items()))
+
+        def inc(amount: float = 1.0) -> None:
+            with self._lock:
+                self._values[key] = self._values.get(key, 0.0) + amount
+
+        return inc
+
+    def render(self) -> str:
+        lines = [f"# HELP {self.name} {self.help}", f"# TYPE {self.name} counter"]
+        with self._lock:
+            for key, v in sorted(self._values.items()):
+                lbl = ",".join(f'{k}="{val}"' for k, val in key)
+                suffix = f"{{{lbl}}}" if lbl else ""
+                lines.append(f"{self.name}{suffix} {v}")
+        return "\n".join(lines)
+
+
+class Gauge(_Metric):
+    def __init__(
+        self,
+        name: str,
+        help_: str = "",
+        const_labels: Optional[Dict[str, str]] = None,
+    ):
+        super().__init__(name, help_)
+        self._value = 0.0
+        self._const = ",".join(
+            f'{k}="{v}"' for k, v in sorted((const_labels or {}).items())
+        )
+
+    def set(self, v: float) -> None:
+        with self._lock:
+            self._value = v
+
+    def inc(self, amount: float = 1.0) -> None:
+        with self._lock:
+            self._value += amount
+
+    def dec(self, amount: float = 1.0) -> None:
+        with self._lock:
+            self._value -= amount
+
+    def get(self) -> float:
+        with self._lock:
+            return self._value
+
+    def render(self, header: bool = True) -> str:
+        suffix = f"{{{self._const}}}" if self._const else ""
+        lines = (
+            [f"# HELP {self.name} {self.help}", f"# TYPE {self.name} gauge"]
+            if header else []
+        )
+        lines.append(f"{self.name}{suffix} {self._value}")
+        return "\n".join(lines)
+
+
+class GaugeVec(_Metric):
+    """A gauge family keyed by one label (prometheus GaugeVec with a
+    single-label schema — the per-queue depth case, where the label is
+    the workqueue name)."""
+
+    def __init__(self, name: str, help_: str = "", label: str = "name",
+                 label_bound: Optional[int] = None):
+        super().__init__(name, help_, label_bound=label_bound)
+        self.label = label
+        self._children: Dict[str, Gauge] = {}
+
+    def labels(self, value: str) -> Gauge:
+        child = self._children.get(value)
+        if child is None:
+            with self._lock:
+                child = self._children.get(value)
+                if child is None:
+                    child = Gauge(
+                        self.name, self.help,
+                        const_labels={self.label: value},
+                    )
+                    self._children[value] = child
+        return child
+
+    def values(self) -> Dict[str, float]:
+        with self._lock:
+            children = dict(self._children)
+        return {v: g.get() for v, g in children.items()}
+
+    def render(self) -> str:
+        lines = [f"# HELP {self.name} {self.help}",
+                 f"# TYPE {self.name} gauge"]
+        with self._lock:
+            children = sorted(self._children.items())
+        for _, child in children:
+            lines.append(child.render(header=False))
+        return "\n".join(lines)
+
+
+class Histogram(_Metric):
+    def __init__(
+        self,
+        name: str,
+        help_: str = "",
+        buckets: Optional[Sequence[float]] = None,
+        const_labels: Optional[Dict[str, str]] = None,
+        label_bound: Optional[int] = None,
+    ):
+        super().__init__(name, help_, label_bound=label_bound)
+        self.buckets = list(buckets or exponential_buckets(1000, 2, 15))
+        self._counts = [0] * (len(self.buckets) + 1)
+        self._sum = 0.0
+        self._count = 0
+        # constant label set prefixed to every sample line (the child-
+        # of-a-vec case; HistogramVec renders through this)
+        self._const = "".join(
+            f'{k}="{v}",' for k, v in sorted((const_labels or {}).items())
+        )
+
+    def observe(self, v: float) -> None:
+        # bisect, not a bucket scan: observe() runs 3x per bound pod on
+        # the wave bind path (90k calls in a density window) from every
+        # bind-pool thread; the linear scan under the shared lock was a
+        # measurable GIL sink there
+        i = bisect.bisect_left(self.buckets, v)
+        with self._lock:
+            self._sum += v
+            self._count += 1
+            self._counts[i] += 1
+
+    @property
+    def count(self) -> int:
+        with self._lock:
+            return self._count
+
+    def reset(self) -> None:
+        """Zero the distribution (bench/test harness seam — keeps the
+        field set in one place so observe()/percentile() refactors
+        can't desynchronize external resets)."""
+        with self._lock:
+            self._counts = [0] * (len(self.buckets) + 1)
+            self._sum = 0.0
+            self._count = 0
+
+    def percentile(self, q: float) -> float:
+        """Approximate q-quantile from bucket upper bounds (the way the
+        e2e metrics scraper reads histograms, metrics_util.go)."""
+        with self._lock:
+            if self._count == 0:
+                return 0.0
+            target = q * self._count
+            cum = 0
+            for i, b in enumerate(self.buckets):
+                cum += self._counts[i]
+                if cum >= target:
+                    return b
+            return float("inf")
+
+    @property
+    def sum(self) -> float:
+        with self._lock:
+            return self._sum
+
+    def bucket_counts(self) -> List[int]:
+        """Per-bucket counts (overflow bucket last) — the SLO watchdog
+        diffs consecutive snapshots to compute window quantiles instead
+        of all-history ones."""
+        with self._lock:
+            return list(self._counts)
+
+    def render(self, header: bool = True) -> str:
+        lines = (
+            [f"# HELP {self.name} {self.help}",
+             f"# TYPE {self.name} histogram"] if header else []
+        )
+        c = self._const
+        suffix = f"{{{c[:-1]}}}" if c else ""
+        with self._lock:
+            cum = 0
+            for i, b in enumerate(self.buckets):
+                cum += self._counts[i]
+                lines.append(f'{self.name}_bucket{{{c}le="{b}"}} {cum}')
+            cum += self._counts[-1]
+            lines.append(f'{self.name}_bucket{{{c}le="+Inf"}} {cum}')
+            lines.append(f"{self.name}_sum{suffix} {self._sum}")
+            lines.append(f"{self.name}_count{suffix} {self._count}")
+        return "\n".join(lines)
+
+
+class HistogramVec(_Metric):
+    """A histogram family keyed by one label (prometheus HistogramVec
+    with a single-label schema — enough for the per-phase scheduler
+    attribution, where the label is the wire-path phase name)."""
+
+    def __init__(
+        self,
+        name: str,
+        help_: str = "",
+        label: str = "phase",
+        buckets: Optional[Sequence[float]] = None,
+        label_bound: Optional[int] = None,
+    ):
+        super().__init__(name, help_, label_bound=label_bound)
+        self.label = label
+        self._buckets = buckets
+        self._children: Dict[str, Histogram] = {}
+
+    def labels(self, value: str) -> Histogram:
+        child = self._children.get(value)
+        if child is None:
+            with self._lock:
+                child = self._children.get(value)
+                if child is None:
+                    child = Histogram(
+                        self.name, self.help, buckets=self._buckets,
+                        const_labels={self.label: value},
+                    )
+                    self._children[value] = child
+        return child
+
+    def sums(self) -> Dict[str, float]:
+        """{label value: cumulative observed sum} — the per-phase
+        seconds totals the bench breakdown table diffs."""
+        with self._lock:
+            children = dict(self._children)
+        return {v: h.sum for v, h in children.items()}
+
+    def render(self) -> str:
+        lines = [f"# HELP {self.name} {self.help}",
+                 f"# TYPE {self.name} histogram"]
+        with self._lock:
+            children = sorted(self._children.items())
+        for _, child in children:
+            lines.append(child.render(header=False))
+        return "\n".join(lines)
+
+
+class Registry:
+    def __init__(self):
+        self._metrics: List[_Metric] = []
+        self._lock = threading.Lock()
+
+    def register(self, m: _Metric) -> _Metric:
+        with self._lock:
+            if any(x.name == m.name for x in self._metrics):
+                # prometheus.MustRegister panics on a duplicate collector;
+                # a silent second registration would render the family
+                # twice and corrupt scrapes
+                raise ValueError(f"metric {m.name!r} already registered")
+            self._metrics.append(m)
+        return m
+
+    def metrics(self) -> List[_Metric]:
+        """Registered metric objects (the lint walk, test_metrics_lint)."""
+        with self._lock:
+            return list(self._metrics)
+
+    def render(self) -> str:
+        with self._lock:
+            return "\n".join(m.render() for m in self._metrics) + "\n"
+
+
+#: process-global registry (prometheus.DefaultRegisterer analogue)
+registry = Registry()
+
+# The scheduler's three histograms (metrics.go:31-54), microsecond units.
+scheduler_e2e_latency = registry.register(
+    Histogram(
+        "scheduler_e2e_scheduling_latency_microseconds",
+        "E2e scheduling latency (scheduling algorithm + binding)",
+    )
+)
+scheduler_algorithm_latency = registry.register(
+    Histogram(
+        "scheduler_scheduling_algorithm_latency_microseconds",
+        "Scheduling algorithm latency",
+    )
+)
+scheduler_binding_latency = registry.register(
+    Histogram(
+        "scheduler_binding_latency_microseconds",
+        "Binding latency",
+    )
+)
+
+# -- trace/device-profiling layer (kubernetes_tpu/trace) ----------------------
+
+# second-unit buckets: 10us .. ~84s (device dispatches sit in the ms-s
+# range; a single bucket ladder serves phase and compile attribution)
+_SECONDS_BUCKETS = exponential_buckets(1e-5, 2, 24)
+
+#: per-phase wall seconds of the scheduling wire path, labeled
+#: phase=encode|probe|score|replay|transfer|wire|bind
+#: (trace/profile.py owns the phase vocabulary)
+scheduler_wave_phase_seconds = registry.register(
+    HistogramVec(
+        "scheduler_wave_phase_seconds",
+        "Wire-path phase latency in seconds, labeled by phase",
+        label="phase",
+        buckets=_SECONDS_BUCKETS,
+        label_bound=8,
+    )
+)
+
+#: XLA compile time, attributed separately from execute time (fed by
+#: jax.monitoring compile-duration events; trace/profile.py installs
+#: the listener). The first jit call of every fresh program shape lands
+#: here instead of polluting the phase/e2e histograms.
+scheduler_xla_compile_seconds = registry.register(
+    Histogram(
+        "scheduler_xla_compile_seconds",
+        "XLA compile seconds per compiled scheduler program",
+        buckets=_SECONDS_BUCKETS,
+    )
+)
+
+#: SLO watchdog breach count (trace/slo.py)
+scheduler_slo_breach_total = registry.register(
+    Counter(
+        "scheduler_slo_breach_total",
+        "Number of scheduling-latency SLO breaches observed",
+    )
+)
+
+#: bf16 quantized-profile shadow-compare divergences (parallel/quant
+#: ShadowGate): a sampled wave whose full-width re-run picked different
+#: nodes. Any increment also trips the session's permanent fallback to
+#: the full-width path, so a nonzero rate here means the bf16 profile
+#: is unsound for this workload's score magnitudes.
+scheduler_quant_shadow_divergence_total = registry.register(
+    Counter(
+        "scheduler_quant_shadow_divergence_total",
+        "Quantized-profile shadow-compare decision divergences",
+    )
+)
+
+# -- AI-cluster workload subsystem (gangs / preemption / quota) ---------------
+
+#: gangs fully bound (all-or-nothing success), per wave driver
+scheduler_gangs_scheduled_total = registry.register(
+    Counter(
+        "scheduler_gangs_scheduled_total",
+        "PodGroups whose whole gang bound in one wave",
+    )
+)
+
+#: gangs parked (insufficient members or no all-member placement),
+#: labeled by reason (members | resources | preempting | backoff)
+scheduler_gangs_parked_total = registry.register(
+    Counter(
+        "scheduler_gangs_parked_total",
+        "PodGroups parked instead of partially bound, by reason",
+        label_bound=8,
+    )
+)
+
+#: pods evicted by priority preemption on behalf of a parked gang
+scheduler_preemption_victims_total = registry.register(
+    Counter(
+        "scheduler_preemption_victims_total",
+        "Victim pods evicted by gang priority preemption",
+    )
+)
+
+#: optimizing-profile waves (KUBERNETES_TPU_PROFILE=optimizing),
+#: labeled by the solver that ran (auction | beam | none)
+scheduler_optimizer_waves_total = registry.register(
+    Counter(
+        "scheduler_optimizer_waves_total",
+        "Waves driven by the optimizing (joint-packing) profile, "
+        "by solver",
+        label_bound=8,
+    )
+)
+
+#: optimizer placements the host-side serial-predicate re-validation
+#: rejected (the pod fell back to the greedy scan), by reason
+#: (predicate | unassigned | gang)
+scheduler_optimizer_fallbacks_total = registry.register(
+    Counter(
+        "scheduler_optimizer_fallbacks_total",
+        "Optimizer placements rejected by host re-validation and "
+        "routed to the greedy fallback, by reason",
+        label_bound=8,
+    )
+)
+
+#: placements the optimizer committed (validated against the serial
+#: predicates before any bind)
+scheduler_optimizer_placements_total = registry.register(
+    Counter(
+        "scheduler_optimizer_placements_total",
+        "Pod placements committed by the joint assignment solver",
+    )
+)
+
+#: defragmentation migrations executed (evict through the batch door +
+#: assigned re-create), bounded per cycle by KUBERNETES_TPU_DEFRAG_BUDGET
+defrag_migrations_total = registry.register(
+    Counter(
+        "defrag_migrations_total",
+        "Pods migrated by the idle-cycle defragmentation controller",
+    )
+)
+
+#: last measured cluster fragmentation (stranded free capacity /
+#: total free capacity, 0..1)
+defrag_fragmentation_ratio = registry.register(
+    Gauge(
+        "defrag_fragmentation_ratio",
+        "Stranded fraction of free cluster capacity at the last "
+        "defrag measurement",
+    )
+)
+
+#: pod/device budget rejections at apiserver admission (403s), labeled
+#: by budget (pods | devices)
+apiserver_quota_denials_total = registry.register(
+    Counter(
+        "apiserver_quota_denials_total",
+        "Workload quota admission denials, labeled by exceeded budget",
+    )
+)
+
+#: apiserver request latency (pkg/apiserver/metrics.go
+#: apiserver_request_latencies, microsecond units like the scheduler's)
+apiserver_request_latency = registry.register(
+    HistogramVec(
+        "apiserver_request_latencies_microseconds",
+        "apiserver request latency in microseconds, labeled by verb",
+        label="verb",
+        label_bound=16,
+    )
+)
+
+#: total REST requests the apiserver handled, labeled by verb — the
+#: numerator of the O(1)-requests-per-wave wire contract (latency
+#: histograms exclude long-running requests, so a plain counter is the
+#: honest request tally)
+apiserver_requests_total = registry.register(
+    Counter(
+        "apiserver_requests_total",
+        "REST requests handled by the apiserver, labeled by verb",
+        label_bound=16,
+    )
+)
+
+# -- watch cache (storage/cacher.py, pkg/storage/cacher analogue) -------------
+
+#: list/get/watch requests served from the in-memory watch cache
+#: (commit-time TLV bytes; zero store round-trip, zero re-encode)
+apiserver_watch_cache_hits_total = registry.register(
+    Counter(
+        "apiserver_watch_cache_hits_total",
+        "apiserver reads served from the watch cache",
+    )
+)
+
+#: reads that fell back to the underlying store (cache disabled or
+#: unhealthy, historic resourceVersion outside the ring, uncachable
+#: payload)
+apiserver_watch_cache_misses_total = registry.register(
+    Counter(
+        "apiserver_watch_cache_misses_total",
+        "apiserver reads that fell back from the watch cache to the store",
+    )
+)
+
+#: objects committed per batch request (bulk bind/status commit) — the
+#: amortization factor of the one-request-per-wave wire contract
+apiserver_batch_commit_size_objects = registry.register(
+    Histogram(
+        "apiserver_batch_commit_size_objects",
+        "Objects committed per apiserver batch request",
+        buckets=[1, 2, 4, 8, 16, 32, 64, 128, 256, 512, 1024, 2048,
+                 4096, 8192],
+    )
+)
+
+#: watch events written to clients by the HTTP frontend (all streams)
+apiserver_watch_events_sent_total = registry.register(
+    Counter(
+        "apiserver_watch_events_sent_total",
+        "Watch events streamed to clients by the apiserver frontend",
+    )
+)
+
+#: events dropped by the slow-watcher backpressure policy: a watch
+#: stream that overflows its buffer is terminated with ERROR (the
+#: client relists) and its undelivered backlog is counted here
+storage_watch_events_dropped_total = registry.register(
+    Counter(
+        "storage_watch_events_dropped_total",
+        "Watch events dropped by slow-watcher stream termination",
+    )
+)
+
+#: watch-cache ring evictions: an event aged out of the bounded ring
+#: before any resumer asked for it. A watch resuming from BELOW the
+#: evicted horizon falls back to the store (or relists on Compacted) —
+#: never silent loss; a hot counter here says the ring is undersized
+#: for the churn rate (KUBERNETES_TPU_WATCH_CACHE_SIZES)
+storage_watch_cache_ring_evictions_total = registry.register(
+    Counter(
+        "storage_watch_cache_ring_evictions_total",
+        "Events evicted from per-resource watch-cache rings",
+    )
+)
+
+#: fan-out deliveries skipped by the cacher's server-side field-clause
+#: pre-filter (events a watcher's selector could never emit): wasted
+#: queue puts that O(nodes x pods) watch fan-out used to pay
+storage_watch_fanout_pruned_total = registry.register(
+    Counter(
+        "storage_watch_fanout_pruned_total",
+        "Watch fan-out deliveries pruned by server-side field filtering",
+    )
+)
+
+#: events carried per coalesced binary watch frame (one segmented
+#: frame — one write syscall — per burst per connection)
+apiserver_watch_coalesced_frame_objects = registry.register(
+    Histogram(
+        "apiserver_watch_coalesced_frame_objects",
+        "Watch events carried per coalesced binary frame",
+        buckets=[1, 2, 4, 8, 16, 32, 64, 128, 256, 512, 1024, 2048,
+                 4096, 8192],
+    )
+)
+
+#: bytes per coalesced binary watch frame
+apiserver_watch_coalesced_frame_bytes = registry.register(
+    Histogram(
+        "apiserver_watch_coalesced_frame_bytes",
+        "Bytes per coalesced binary watch frame",
+        buckets=[256, 1024, 4096, 16384, 65536, 262144, 1048576,
+                 4194304, 16777216],
+    )
+)
+
+# -- API priority and fairness (apiserver/flowcontrol.py) ---------------------
+
+#: seconds a request waited in its priority level's fair queues before
+#: dispatch (0 observed for immediate dispatch and for the exempt
+#: level — the exempt histogram staying ~0 IS the system-traffic
+#: never-queues contract, checked by the noisy-neighbor gate)
+apiserver_flowcontrol_request_wait_duration_seconds = registry.register(
+    HistogramVec(
+        "apiserver_flowcontrol_request_wait_duration_seconds",
+        "Seconds requests waited in APF queues, labeled by priority level",
+        label="priority_level",
+        buckets=_SECONDS_BUCKETS,
+        label_bound=16,
+    )
+)
+
+#: requests currently sitting in a priority level's queues
+apiserver_flowcontrol_current_inqueue_requests = registry.register(
+    GaugeVec(
+        "apiserver_flowcontrol_current_inqueue_requests",
+        "Requests currently queued by APF, labeled by priority level",
+        label="priority_level",
+        label_bound=16,
+    )
+)
+
+#: requests shed at the apiserver door (429 + Retry-After), labeled by
+#: priority level and reason (queue-full | time-out)
+apiserver_flowcontrol_rejected_requests_total = registry.register(
+    Counter(
+        "apiserver_flowcontrol_rejected_requests_total",
+        "Requests rejected by APF, labeled by priority level and reason",
+        label_bound=32,
+    )
+)
+
+#: requests that acquired a seat and executed, labeled by priority level
+apiserver_flowcontrol_dispatched_requests_total = registry.register(
+    Counter(
+        "apiserver_flowcontrol_dispatched_requests_total",
+        "Requests dispatched by APF, labeled by priority level",
+        label_bound=16,
+    )
+)
+
+# -- client transport resilience (client/transport.py) ------------------------
+
+#: 429 responses the HTTP transport observed (one per shed response,
+#: whether or not a retry followed)
+client_rate_limited_requests_total = registry.register(
+    Counter(
+        "client_rate_limited_requests_total",
+        "429 responses observed by the client HTTP transport",
+    )
+)
+
+#: retries the transport performed after a 429 (Retry-After honored,
+#: capped exponential backoff with jitter)
+client_request_retries_total = registry.register(
+    Counter(
+        "client_request_retries_total",
+        "Request retries performed by the client transport after 429",
+    )
+)
+
+#: endpoint rotations a multi-endpoint transport performed because one
+#: apiserver replica stopped answering — a dead socket OR a 503 (an
+#: unpromoted standby / a quorum member that lost its leader). Counted
+#: client-side but named for what it measures: apiserver failovers.
+apiserver_endpoint_failovers_total = registry.register(
+    Counter(
+        "apiserver_endpoint_failovers_total",
+        "Apiserver endpoint rotations performed by multi-endpoint "
+        "client transports (connection failure or 503)",
+    )
+)
+
+# -- kubemark hollow fleet (kubemark/fleet.py) --------------------------------
+
+#: node heartbeats the hollow fleet committed (batched onto
+#: /api/v1/batch — N heartbeats per interval, O(1) requests)
+kubemark_fleet_heartbeats_total = registry.register(
+    Counter(
+        "kubemark_fleet_heartbeats_total",
+        "NodeStatus heartbeats committed by the hollow fleet",
+    )
+)
+
+#: pod lifecycle transitions the fleet acked (Pending->Running),
+#: batched the same way; deletions are observed locally only
+kubemark_fleet_pod_transitions_total = registry.register(
+    Counter(
+        "kubemark_fleet_pod_transitions_total",
+        "Pod lifecycle transitions committed by the hollow fleet",
+    )
+)
+
+# -- audit subsystem (kubernetes_tpu/audit) -----------------------------------
+
+#: one increment per audit event emitted, labeled by policy level and
+#: request verb (apiserver/pkg/audit/metrics.go apiserver_audit_event_total)
+apiserver_audit_event_total = registry.register(
+    Counter(
+        "apiserver_audit_event_total",
+        "Audit events emitted by the apiserver, labeled by level and verb",
+        label_bound=64,
+    )
+)
+
+# -- control-loop metrics (utils/workqueue, client/cache) ---------------------
+
+#: current number of queued-but-unprocessed items per named workqueue
+#: (workqueue/metrics.go depth) — the controller-lag signal
+workqueue_depth = registry.register(
+    GaugeVec(
+        "workqueue_depth",
+        "Current depth of each named workqueue",
+        label="name",
+        label_bound=32,
+    )
+)
+
+#: total adds accepted per named workqueue (deduped re-adds excluded)
+workqueue_adds_total = registry.register(
+    Counter(
+        "workqueue_adds_total",
+        "Total adds handled by each named workqueue",
+        label_bound=32,
+    )
+)
+
+#: seconds an item sat queued before a worker picked it up
+workqueue_queue_duration_seconds = registry.register(
+    HistogramVec(
+        "workqueue_queue_duration_seconds",
+        "Seconds an item waits in a named workqueue before processing",
+        label="name",
+        buckets=_SECONDS_BUCKETS,
+        label_bound=32,
+    )
+)
+
+#: seconds a worker spent processing one item (get -> done)
+workqueue_work_duration_seconds = registry.register(
+    HistogramVec(
+        "workqueue_work_duration_seconds",
+        "Seconds spent processing one item from a named workqueue",
+        label="name",
+        buckets=_SECONDS_BUCKETS,
+        label_bound=32,
+    )
+)
+
+#: rate-limited requeues per named workqueue (sync errors retrying)
+workqueue_retries_total = registry.register(
+    Counter(
+        "workqueue_retries_total",
+        "Total rate-limited requeues per named workqueue",
+        label_bound=32,
+    )
+)
+
+#: reflector relists (the initial list plus every resync/recovery list)
+reflector_lists_total = registry.register(
+    Counter(
+        "reflector_lists_total",
+        "Total list operations performed by each named reflector",
+        label_bound=32,
+    )
+)
+
+#: wall seconds of one reflector list call (fetch + store replace)
+reflector_list_duration_seconds = registry.register(
+    HistogramVec(
+        "reflector_list_duration_seconds",
+        "Seconds per reflector list operation, labeled by reflector",
+        label="name",
+        buckets=_SECONDS_BUCKETS,
+        label_bound=32,
+    )
+)
+
+#: lifetime of one watch session (established -> closed/expired)
+reflector_watch_duration_seconds = registry.register(
+    HistogramVec(
+        "reflector_watch_duration_seconds",
+        "Seconds one reflector watch session stayed open",
+        label="name",
+        buckets=_SECONDS_BUCKETS,
+        label_bound=32,
+    )
+)
+
+#: watch events applied to local stores, labeled name + event type
+watch_events_total = registry.register(
+    Counter(
+        "watch_events_total",
+        "Watch events applied by reflectors, labeled by name and type",
+        label_bound=128,
+    )
+)
+
+#: seconds from informer start to the initial list fully applied
+informer_sync_duration_seconds = registry.register(
+    HistogramVec(
+        "informer_sync_duration_seconds",
+        "Seconds from informer start until the initial sync completed",
+        label="name",
+        buckets=_SECONDS_BUCKETS,
+        label_bound=32,
+    )
+)
+
+#: events dropped by the client-side spam filter (client/record.py
+#: EventCorrelator token bucket)
+client_events_discarded_total = registry.register(
+    Counter(
+        "client_events_discarded_total",
+        "Events discarded by the client event spam filter",
+        label_bound=64,
+    )
+)
+
+# -- quorum consensus store (storage/quorum, the etcd3 cluster analogue) ------
+
+#: current raft term per quorum member (several members can share one
+#: process in tests/bench, so the family is keyed by node id)
+quorum_term = registry.register(
+    GaugeVec(
+        "quorum_term",
+        "Current raft term of each quorum store member",
+        label="node",
+        label_bound=16,
+    )
+)
+
+#: highest log index known committed (majority-replicated) per member
+quorum_commit_index = registry.register(
+    GaugeVec(
+        "quorum_commit_index",
+        "Highest committed raft log index of each quorum store member",
+        label="node",
+        label_bound=16,
+    )
+)
+
+#: elections won, labeled by the winning node — a hot counter means
+#: the cluster is churning leaders (timeouts too tight for the link,
+#: or a flapping partition)
+quorum_leader_changes_total = registry.register(
+    Counter(
+        "quorum_leader_changes_total",
+        "Quorum leader elections won, labeled by the winning node",
+        label_bound=16,
+    )
+)
+
+#: one AppendEntries round trip (leader -> follower -> reply), the
+#: replication half of every acked write's latency
+quorum_append_rtt_seconds = registry.register(
+    Histogram(
+        "quorum_append_rtt_seconds",
+        "AppendEntries round-trip seconds from leader to one follower",
+        buckets=_SECONDS_BUCKETS,
+    )
+)
+
+#: snapshot installs shipped to lagging or fresh followers
+quorum_snapshot_installs_total = registry.register(
+    Counter(
+        "quorum_snapshot_installs_total",
+        "Raft snapshots installed onto lagging or fresh quorum members",
+    )
+)
+
+#: linearizable reads served under a live leader lease — no heartbeat
+#: round paid (the etcd lease-read optimization). Under a healthy
+#: leader this grows while quorum_readindex_rounds_total stays flat.
+quorum_lease_reads_total = registry.register(
+    Counter(
+        "quorum_lease_reads_total",
+        "Linearizable reads served under a live leader lease "
+        "(zero-heartbeat fast path)",
+    )
+)
+
+#: read-index confirmation rounds actually executed (a heartbeat
+#: majority round per barrier) — the slow path a lease read avoids
+quorum_readindex_rounds_total = registry.register(
+    Counter(
+        "quorum_readindex_rounds_total",
+        "Read-index heartbeat confirmation rounds executed for "
+        "linearizable reads (the lease-miss slow path)",
+    )
+)
+
+#: pre-vote probe rounds started by a would-be candidate (electability
+#: is probed WITHOUT bumping the term, so a rejoining partitioned
+#: member cannot depose a healthy leader)
+quorum_prevote_rounds_total = registry.register(
+    Counter(
+        "quorum_prevote_rounds_total",
+        "Pre-vote electability probe rounds started before any real "
+        "term-bumping election",
+    )
+)
+
+# -- continuous telemetry pipeline (kubernetes_tpu/telemetry) -----------------
+
+#: wall seconds of one full collector tick (every target scraped,
+#: parsed, and ingested) — the pipeline's own overhead, scraped into
+#: the very store it measures
+telemetry_scrape_duration_seconds = registry.register(
+    Histogram(
+        "telemetry_scrape_duration_seconds",
+        "Seconds per telemetry collector tick across all targets",
+        buckets=_SECONDS_BUCKETS,
+    )
+)
+
+#: scrape failures per target job (unreachable replica, parse error);
+#: a restarting fleet replica shows up here before it shows up dead
+telemetry_scrape_errors_total = registry.register(
+    Counter(
+        "telemetry_scrape_errors_total",
+        "Failed telemetry scrapes, labeled by target job",
+        label_bound=16,
+    )
+)
+
+#: 1 while an SLO alert rule is firing, 0 otherwise (one child per
+#: rule name) — the `kubectl alerts` signal and the thing dashboards
+#: would page on
+telemetry_alerts_firing = registry.register(
+    GaugeVec(
+        "telemetry_alerts_firing",
+        "Whether each telemetry SLO alert rule is currently firing",
+        label="alert",
+        label_bound=32,
+    )
+)
+
+#: series the TSDB refused to create because a metric blew through its
+#: declared label-cardinality bound — the store-side enforcement of
+#: the same `label_bound` the metrics lint demands at call sites
+telemetry_series_dropped_total = registry.register(
+    Counter(
+        "telemetry_series_dropped_total",
+        "Series rejected by the TSDB per-metric cardinality cap, "
+        "labeled by metric name",
+        label_bound=256,
+    )
+)

@@ -244,7 +244,9 @@ def _probe_fn(config: SchedulerConfig, num_zones: int, num_values: int,
     dt = np.dtype(_tab_dtype(config))
     k = 8 // dt.itemsize
     tabp = tab.to(_TORCH_DTYPE[dt]).reshape(J // k, k, N).transpose(1, 2)
-    tabw = tabp.contiguous().view(I64).reshape(J // k, N)
+    # flattened first: at N == 1 contiguous() may keep the size-1 axis's
+    # stride, which a dtype view refuses
+    tabw = tabp.contiguous().view(-1).view(I64).reshape(J // k, N)
     return {"packed": torch.cat([stk, tabw], dim=0)}
 
 

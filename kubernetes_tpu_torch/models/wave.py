@@ -38,8 +38,14 @@ backlog and to the oracle. `dispatches` tallies the device dispatches of
 a wave with the JAX driver's keys (probe, group_probe, zreplay,
 zreplay_group, apply, scan) plus scan_pods, the pods the scan decided.
 
+Gangs (schedule_backlog's `gangs=`, from scheduler/gang.GangDirector)
+are all-or-nothing spans: each is its own run (split_runs boundaries),
+takes the run machinery at any length, never the device replay, and
+parks whole (no member placed, nothing folded) unless every member gets
+a node, in run_single and in host_group_replay alike.
+
 Left to later slices, none of which changes a decision: the pipeline,
-packed buffers, quantized and resident tables, gangs, the mesh. The
+packed buffers, quantized and resident tables, the mesh. The
 run/eligibility/group helpers below are verbatim copies of the JAX
 driver's host code, except group_buffer (see its docstring).
 """
@@ -79,11 +85,7 @@ from kubernetes_tpu_torch.models.replay import ReplayResult, replay_fast
 from kubernetes_tpu_torch.models.zreplay import ZReplay
 from kubernetes_tpu_torch.ops import services as SV
 from kubernetes_tpu_torch.snapshot.carry import place, to_device
-from kubernetes_tpu_torch.snapshot.encode import (
-    ClusterSnapshot,
-    PodBatch,
-    service_config_labels,
-)
+from kubernetes_tpu_torch.snapshot.encode import ClusterSnapshot, PodBatch
 from kubernetes_tpu_torch.snapshot.pad import next_pow2
 
 I64 = torch.int64
@@ -490,21 +492,29 @@ def split_runs(rep_idx: np.ndarray,
     return runs
 
 
+# A verbatim copy (tests/test_torch_isolation.py FUNCTION_COPIES): its
+# docstring's "mesh wave drivers" is the JAX package's. The port has no
+# mesh driver yet (ROADMAP.md queue 1, parallel/mesh.py).
 def classify_runs(config: SchedulerConfig, snap: ClusterSnapshot,
                   batch: PodBatch, runs, num_values: int, min_run: int,
-                  *, device_zoned: bool = False,
-                  zoned: bool = False) -> List[dict]:
+                  *, device_zoned: bool = False, zoned: bool = False,
+                  gang_starts: frozenset = frozenset()) -> List[dict]:
     """Classify every run once: eligibility, the self-anti veto, the
-    service context, the device-replay route and commit purity (whether
-    a grouped probe's host adjustments can cover its commits) — the
-    dispatch-shape contract of kubernetes_tpu/models/wave.classify_runs,
-    without its gang spans (gangs are not ported)."""
+    service context, the device-replay route, and commit purity
+    (whether a grouped probe's host adjustments can cover its commits).
+    Shared by the single-chip and mesh wave drivers — the classification
+    IS the dispatch-shape contract, so the two drivers can never drift."""
+    from kubernetes_tpu_torch.snapshot.encode import service_config_labels
+
     config_ok = config_eligible(config)
     svc_free = not service_config_labels(config)
     infos: List[dict] = []
     for rep, start, length in runs:
         eligible, veto = (False, None)
-        if length >= min_run:
+        # a gang span takes the run machinery at ANY length (typical
+        # gangs are 2-16 pods, under the default min_run): the probe/
+        # replay path is where the all-or-nothing commit is enforced
+        if length >= min_run or start in gang_starts:
             eligible, veto = run_eligible(
                 config, batch, rep, snap, config_ok=config_ok,
             )
@@ -747,10 +757,24 @@ class WaveScheduler:
         batch: PodBatch,
         rep_idx: np.ndarray,
         last_node_index: int = 0,
+        gangs: Optional[Sequence[dict]] = None,
     ) -> Tuple[np.ndarray, dict, int]:
         """-> (chosen i32[P] node ids with -1 == unschedulable, final
         carry, final lastNodeIndex). snap may be node-padded; batch holds
-        one row per unique pod; rep_idx maps backlog position -> row."""
+        one row per unique pod; rep_idx maps backlog position -> row.
+
+        `gangs` marks all-or-nothing spans of the backlog, as in the JAX
+        driver: [{"start", "length", "score_add": i64[N] | None}]. Each
+        span becomes its own run riding the same probe/replay machinery
+        as any template run (a gang costs no extra dispatch), but its
+        commits fold only when every member gets a node; otherwise the
+        whole span stays -1 (parked) and later runs replay against
+        untouched state. A span the run machinery cannot take atomically
+        (mixed member templates, ineligible features: the serial scan)
+        schedules plainly; the caller (scheduler/gang.GangDirector)
+        checks all-or-nothing over the returned hosts before anything
+        binds. None/[] = no gangs, and the wave is bit-identical to the
+        driver without them."""
         static, carry, num_zones, num_values = self._wave_setup(
             snap, last_node_index)
         pods_dev = to_device(batch, self.device, BatchScheduler.POD_FIELDS)
@@ -804,7 +828,8 @@ class WaveScheduler:
         def run_single(carry, info, done0=0):
             """The per-run path: probe (carrying a deferred single fold)
             + host replay + deferred fold, or the single-run device
-            replay; re-probing past the table horizon."""
+            replay; re-probing past the table horizon. A gang parks whole
+            when a member finds no node."""
             nonlocal L_host
             rep, start, length = info["rep"], info["start"], info["length"]
             pod = pod_row(rep)
@@ -849,8 +874,24 @@ class WaveScheduler:
                     # (mid-run re-pin hazard): scan the rest of the run
                     pending.extend(range(start + done, start + length))
                     break
+                if info["gang"] is not None and \
+                        info["gang"].get("score_add") is not None:
+                    tables = gang_score_add(tables,
+                                            info["gang"]["score_add"])
                 res: ReplayResult = self._replay(
                     _permute_tables(tables, perm), K, L_host)
+                if info["gang"] is not None and (
+                        res.n_done == 0 or bool((res.chosen < 0).any())):
+                    # all-or-nothing: park the gang. No member binds and
+                    # this segment folds nothing; earlier table-horizon
+                    # segments' picks are erased (their folded counts
+                    # stay as in-wave phantom usage, as in the JAX
+                    # driver: nothing binds, so the next wave starts
+                    # from clean cluster state)
+                    out[start:start + length] = -1
+                    return carry
+                # a gang table-horizon partial (n_done < K, every pick
+                # valid) falls through: write, fold and re-probe
                 if res.n_done == 0:
                     # no progress possible through tables; scan the rest
                     pending.extend(range(start + done, start + length))
@@ -884,6 +925,7 @@ class WaveScheduler:
                 [(g["rep"], g["start"], g["length"]) for g in group],
                 headers[:G], usage, self._replay, perm, L_host, out, zoned,
                 self.max_j, num_zones,
+                gang_marks=[g["gang"] for g in group],
             )
             if counts_mat.any():
                 cm = np.zeros((G_bucket, N), np.int64)
@@ -938,10 +980,32 @@ class WaveScheduler:
                 consumed += 1
             return carry, consumed, partial
 
-        runs = split_runs(rep_idx)
+        # maximal runs of consecutive equal reps; gang spans force their
+        # own run boundaries so all-or-nothing covers exactly the gang
+        gang_by_start: dict = {}
+        boundaries: List[int] = []
+        for g in (gangs or ()):
+            gang_by_start[int(g["start"])] = g
+            boundaries += [int(g["start"]),
+                           int(g["start"]) + int(g["length"])]
+        runs = split_runs(rep_idx, boundaries)
         infos = classify_runs(self.config, snap, batch, runs, num_values,
                               self.min_run, device_zoned=self._device_zoned,
-                              zoned=zoned)
+                              zoned=zoned,
+                              gang_starts=frozenset(gang_by_start))
+        for info in infos:
+            g = gang_by_start.get(info["start"])
+            if g is not None and info["length"] == g["length"] \
+                    and info["eligible"]:
+                # atomic in-driver gang: host probe/replay path only (the
+                # device replay folds commits as it picks and cannot
+                # discard a partial gang)
+                info["gang"] = g
+                info["device"] = False
+            else:
+                # a span the driver cannot take atomically schedules
+                # plainly; the director's post-hoc check guards the binds
+                info["gang"] = None
         host_cap = _host_group_cap(N)
         idx = 0
         while idx < len(infos):

@@ -6,6 +6,8 @@ tensors lie. Integer tables are int64 (bitsets widened from uint32), so
 the arithmetic is the reference's int64/float64 arithmetic; every
 promotion is explicit. probe_kernel.py wraps the hand-written CUDA
 kernel of the wave probe's resource sweep, zreplay_kernel.py that of the
-zoned pick loop; services.py holds the ServiceAffinity /
-ServiceAntiAffinity functions of Policy files.
+zoned pick loop, preempt_kernel.py that of the preemption victim scorer
+(preempt.py holds its plain version and the director's VictimScorer);
+services.py holds the ServiceAffinity / ServiceAntiAffinity functions of
+Policy files.
 """

@@ -65,10 +65,17 @@ class TorchScheduleAlgorithm:
             rep_idx[i] = r
         return reps, rep_idx
 
-    def schedule_backlog(self, pods: Sequence[Pod],
-                         state: ClusterState) -> List[Optional[str]]:
+    def schedule_backlog(self, pods: Sequence[Pod], state: ClusterState,
+                         gangs: Optional[Sequence[dict]] = None
+                         ) -> List[Optional[str]]:
         """Schedule a FIFO backlog as one wave: -> the chosen node name
-        per pod (None where nothing fits)."""
+        per pod (None where nothing fits).
+
+        gangs: all-or-nothing spans of the backlog, [{"start", "length",
+        "score_by_name": {node name: int} | None}] (the layout of
+        scheduler/gang.GangDirector.plan_wave): each gang's score row is
+        resolved into the snapshot's node order (padded rows score 0 and
+        never fit) and handed to the wave driver."""
         if not pods:
             return []
         reps, rep_idx = self._dedup(pods)
@@ -80,7 +87,8 @@ class TorchScheduleAlgorithm:
             return [None] * len(pods)
         snap = pad_snapshot(snap, next_pow2(snap.num_nodes, 64))
         chosen, _final, last = self._wave.schedule_backlog(
-            snap, batch, rep_idx, last_node_index=self._last_node_index)
+            snap, batch, rep_idx, last_node_index=self._last_node_index,
+            gangs=wave_gangs(gangs, snap.node_names))
         self._last_node_index = last
         names = snap.node_names
         return [
@@ -93,3 +101,27 @@ class TorchScheduleAlgorithm:
         if host is None:
             raise FitError(pod, {})
         return host
+
+
+def wave_gangs(gangs, node_names) -> Optional[List[dict]]:
+    """The director's gang layout -> the wave driver's: each gang's
+    per-node-NAME score (the heterogeneity throughput term) as an i64 row
+    in snapshot node order, 0 on nodes it does not name and on padded
+    rows. None when there are no gangs (kubernetes_tpu/scheduler/
+    tpu_algorithm.py _schedule_backlog_locked)."""
+    if not gangs:
+        return None
+    name_to_id = {nm: i for i, nm in enumerate(node_names) if nm}
+    out = []
+    for g in gangs:
+        add = None
+        by_name = g.get("score_by_name")
+        if by_name:
+            add = np.zeros(len(node_names), np.int64)
+            for nm, v in by_name.items():
+                i = name_to_id.get(nm)
+                if i is not None:
+                    add[i] = int(v)
+        out.append({"start": g["start"], "length": g["length"],
+                    "score_add": add})
+    return out

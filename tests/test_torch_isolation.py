@@ -23,7 +23,7 @@ COPIES = (
     "snapshot/volumes.py", "snapshot/services.py", "snapshot/pad.py",
     "models/replay.py", "models/hosttab.py", "native/replay.c",
     "scheduler/plugins.py", "scheduler/policy.py", "runtime/__init__.py",
-    "runtime/scheme.py",
+    "runtime/scheme.py", "metrics/__init__.py", "metrics/metrics.py",
 )
 #: functions the port's own modules keep verbatim from their counterparts
 FUNCTION_COPIES = {
@@ -33,7 +33,11 @@ FUNCTION_COPIES = {
                        "_lt_pernode_dom", "run_eligible", "pick_j",
                        "split_runs", "gather_batch", "_permute_tables",
                        "run_pure", "_host_group_cap", "gang_score_add",
-                       "host_group_replay", "svc_run_context"),
+                       "host_group_replay", "svc_run_context",
+                       "classify_runs"),
+    "ops/preempt.py": ("INVALID_PRIO", "RES_ROWS", "pack_candidates"),
+    "scheduler/gang.py": ("GangParked", "_place_gang",
+                          "_victims_from_slots"),
     "scheduler/algorithmprovider.py": (
         "DEFAULT_PROVIDER_NAME", "TPU_PROVIDER_NAME",
         "CANONICAL_PREDICATE_ORDER", "_max_pd_vols", "_register_all"),
@@ -41,11 +45,13 @@ FUNCTION_COPIES = {
 #: functions the port keeps in another form, each with the reason its
 #: docstring records (tests/test_torch_grouped.py checks group_buffer's
 #: rows against the JAX package's packed buffer; tests/test_torch_policy.py
-#: the device providers the factory registers)
+#: the device providers the factory registers; tests/test_torch_gang.py the
+#: director on the CPU against the JAX package's)
 DEVIATIONS = {
     ("models/wave.py", "group_buffer"): "models/pack.py",
     ("scheduler/algorithmprovider.py", "_tpu_algorithm_factory"):
         "TorchScheduleAlgorithm",
+    ("scheduler/gang.py", "GangDirector"): "VictimScorer(device=device)",
 }
 
 
@@ -79,6 +85,8 @@ def test_import_leaves_jax_unloaded():
         "import kubernetes_tpu_torch.hyperkube\n"
         "import kubernetes_tpu_torch.ops.services\n"
         "import kubernetes_tpu_torch.harness.scenarios\n"
+        "import kubernetes_tpu_torch.scheduler.gang\n"
+        "import kubernetes_tpu_torch.ops.preempt_kernel\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'kubernetes_tpu')]\n"
         "assert not bad, bad\n"

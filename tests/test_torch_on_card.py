@@ -1,9 +1,10 @@
 """The port on the card: the CUDA kernels (the probe kernel K1, the
-zoned pick loop K3) against their plain versions; the service ops, a
-Policy document and the extender service's verbs against the same calls
-on the CPU; and the scheduler on CUDA against the same call on the CPU
-and the port's oracle copy. Each test skips where there is no CUDA
-device.
+zoned pick loop K3, the victim scorer K6) against their plain versions;
+the service ops, a Policy document and the extender service's verbs
+against the same calls on the CPU; the scheduler on CUDA against the same
+call on the CPU and the port's oracle copy; and a gang director cycle
+with preemption on CUDA against the same cycle on the CPU. Each test
+skips where there is no CUDA device.
 
 This module imports only torch and the port, so it also runs on a
 machine without JAX:
@@ -17,6 +18,7 @@ import torch
 import kubernetes_tpu_torch.api.types as T
 from kubernetes_tpu_torch.harness import scenarios as S
 from kubernetes_tpu_torch.oracle import ClusterState, GenericScheduler
+from kubernetes_tpu_torch.ops import preempt_kernel as VK
 from kubernetes_tpu_torch.ops import probe_kernel as PK
 from kubernetes_tpu_torch.ops import zreplay_kernel as ZK
 from kubernetes_tpu_torch.scheduler.algorithm import TorchScheduleAlgorithm
@@ -224,3 +226,48 @@ def test_extender_verbs_on_card_match_cpu(cuda_device):
         assert got[0] == 200
         assert json.dumps(got, sort_keys=True) == json.dumps(
             cpu.handle(verb, json.loads(text)), sort_keys=True)
+
+
+@pytest.mark.parametrize("case", S.VICTIM_CASES,
+                         ids=[c[0] for c in S.VICTIM_CASES])
+def test_victim_kernel_matches_plain_on_card(case, cuda_device):
+    from kubernetes_tpu_torch.ops.preempt import victim_score_plain
+
+    label, N, C, kind = case
+    c = S.victim_case(N, C, 4, kind)
+    args = [torch.as_tensor(c[k]).to(cuda_device)
+            for k in ("prio", "ord", "res", "free", "req")]
+    launches = VK.LAUNCHES
+    got = VK.victim_score(*args, c["gang_prio"])
+    assert VK.LAUNCHES == launches + 1
+    want = victim_score_plain(*args, c["gang_prio"])
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b), label
+
+
+def test_gang_cycle_on_card_matches_cpu(cuda_device):
+    """A director cycle with a parked high-priority gang: the same hosts,
+    parks, statuses and victims on the card (K1 and K6 launched) as on
+    the CPU; after the evictions the gang binds whole."""
+    from kubernetes_tpu_torch.scheduler import gang as G
+
+    def cycle(device):
+        nodes, bound = S.bound_cluster(T, 24, per_node=6, cpu="500m")
+        wave, groups = S.gang_wave(T, singles=20, gangs=8, members=4,
+                                   big=6, big_cpu="2", short=2)
+        state = ClusterState.build(nodes, assigned_pods=bound)
+        statuses, evicted = [], []
+        d = S.gang_director(G, groups, statuses, evicted, device=device)
+        algo = TorchScheduleAlgorithm(device=device)
+        out = S.director_wave(d, algo, wave, state)
+        big = [p for p in wave
+               if p.metadata.labels.get(T.POD_GROUP_LABEL) == "big"]
+        again = S.director_wave(d, algo, big, S.evict(state, evicted))
+        return out, again, statuses, [v.metadata.name for v in evicted]
+
+    k1, k6 = PK.LAUNCHES, VK.LAUNCHES
+    got = cycle(cuda_device)
+    assert PK.LAUNCHES > k1 and VK.LAUNCHES == k6 + 1
+    assert got == cycle("cpu")
+    assert got[3] and None not in got[1]["hosts"]
