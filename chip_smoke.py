@@ -89,16 +89,32 @@ non-zero:
      tallies equal to the same flow on the CPU (host_jobs); no gang
      partly placed, no victim at priority 10 or above, K1 and K6
      launched; wall times per step and _place_gang's share;
-  9. the kernels line, with the launch counts of each path it drove;
+  9. the daemon's scheduling core: (9a) phase 4's density shape through
+     a SchedulerCache fed the nodes, TorchScheduleAlgorithm(cache=) warmed
+     up for them and core.Scheduler.schedule_one until the queue is empty
+     (waves of 4,096, then the bind pool): every pod bound, the names of
+     phase 4's one-shot call pod for pod, every wave after the first from
+     the incremental encoder's wave_view, K1 launched; the wall, pods/s,
+     each wave's seconds in wave_view, the algorithm and the assume and
+     bind, the resident tables' counts and the idle share; (9b) phase 8's
+     gang scenario cut to 1,000 nodes through the same loop with the
+     GangDirector wired in, the parked big gang queued again: binds,
+     errors, statuses, victims and cycles equal to the same flow on the
+     CPU (host_jobs), no gang partly bound, K1 and K6 launched;
+  10. the kernels line, with the launch counts of each path it drove;
      then nvidia-smi's line, then the result line
      {"ok": true, "device": {...}}.
+
+Every idle share comes from a profiler trace kept only when its K1, K3
+and K6 events equal the launches the wrappers counted during the traced
+call (device_busy_ms); the line prints both.
 
 Each path's launch counts are set to 0 just before it and read just
 after; a path that does not launch each of its kernels fails. The
 host-only references (the serial oracle of phases 5 and 6, phase 6's
-CPU runs, phase 8's CPU flow) run from the start in three worker
-processes of two torch threads each (host_jobs), beside the card's
-phases.
+CPU runs, the CPU flows of phases 8 and 9b) run from the start in three
+worker processes of two torch threads each (host_jobs), beside the
+card's phases.
 
 Exits non-zero, printing no result, when CUDA is not available or when
 the port's package is not beside this script.
@@ -146,6 +162,13 @@ HOST_WORKERS = 3
 #: phase 8: (nodes, bound priority-0 pods per node, singletons, gangs,
 #: members per gang, members of the priority-10 gang)
 GANG_SIZE = (5000, 24, 4096, 256, 16, 256)
+#: phase 9a: (nodes, pods), phase 4's density shape
+DAEMON_SIZE = (5000, 50000)
+#: phase 9b: phase 8's scenario cut to 1,000 nodes, and its singletons and
+#: gangs in proportion (800 and 50); the times the parked big gang is
+#: queued again
+DAEMON_GANG_SIZE = (1000, 24, 800, 50, 16, 256)
+DAEMON_GANG_RETRIES = 3
 
 
 def emit(phase: str, **kw) -> None:
@@ -256,22 +279,54 @@ def kernel_device_ms(fn, name, n=20, tries=8):
                        f"recorded {seen} of them")
 
 
-def device_busy_ms(fn):
-    """-> (summed device time of every kernel and copy, in ms, or None
-    when the trace shows none; wall seconds) of one traced call. The
-    trace records only the device's activity: the host's ops would add
-    their own cost to the wall (and to the idle share) and to calls that
-    launch millions of kernels."""
+def device_busy_ms(fn, kernels, tries=5):
+    """-> (summed device time of every kernel and copy of one traced call
+    of fn, in ms, or None when the trace shows none; its wall seconds;
+    {kernel: launches} that the wrappers counted during that call; the
+    kernel events each trace taken recorded, {kernel: events}, the kept
+    one last). kernels: {the kernel's symbol: its wrapper module, whose
+    LAUNCHES counts its launches}. A trace is kept only when it records
+    each kernel as many times as its wrapper counted launches during the
+    traced call; one that falls short is taken again (fn is called
+    again), up to `tries` traces in all; then it raises. (Traces on the
+    H100 have kept as few as 0 of 20 launches; an idle share read from a
+    trace that lost kernel events would be too high.) The trace records
+    only the device's activity: the host's ops would add their own cost
+    to the wall (and to the idle share) and to calls that launch
+    millions of kernels."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    busy_us = sum(ev.self_device_time_total for ev in prof.key_averages()
-                  if ev.device_type == torch.autograd.DeviceType.CUDA)
-    return (busy_us / 1e3 if busy_us else None), wall
+    seen = []
+    for _ in range(tries):
+        before = {k: m.LAUNCHES for k, m in kernels.items()}
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        launched = {k: m.LAUNCHES - before[k] for k, m in kernels.items()}
+        events = dict.fromkeys(kernels, 0)
+        busy_us = 0.0
+        for ev in prof.key_averages():
+            if ev.device_type == torch.autograd.DeviceType.CUDA:
+                busy_us += ev.self_device_time_total
+            for k in kernels:
+                if k in ev.key:
+                    events[k] += ev.count
+        seen.append(events)
+        if events == launched:
+            return (busy_us / 1e3 if busy_us else None), wall, launched, seen
+    raise RuntimeError(f"{tries} profiler traces recorded {seen} kernel "
+                       f"events where the wrappers counted the launches "
+                       f"{launched}")
+
+
+def idle_fields(busy_ms, wall, launched, seen) -> dict:
+    """The idle-share fields of a phase's line, from device_busy_ms."""
+    return {"traced_wall_s": wall, "device_busy_ms": busy_ms,
+            "device_idle_share": (None if busy_ms is None
+                                  else 1.0 - busy_ms / 1e3 / wall),
+            "traced_launches": launched, "trace_kernel_events": seen}
 
 
 def probe_bound_ms(J, N) -> tuple:
@@ -677,26 +732,32 @@ def phase_main_path(PK, ZK, T, ClusterState, TorchScheduleAlgorithm, S):
     cpu_wall = time.perf_counter() - t1
     if cpu_names != names:
         raise AssertionError("card and CPU runs chose different nodes")
-    busy_ms, traced_wall = device_busy_ms(
+    idle = idle_fields(*device_busy_ms(
         lambda: TorchScheduleAlgorithm(device="cuda").schedule_backlog(
-            pods, state))
+            pods, state), counted_kernels(PK, ZK)))
     emit("main_path", nodes=n_nodes, pods=n_pods, wall_s=wall,
          encode_s=encode_s, encode_share=encode_s / wall,
-         cold_wall_s=cold_wall, traced_wall_s=traced_wall,
-         device_busy_ms=busy_ms,
-         device_idle_share=(None if busy_ms is None
-                            else 1.0 - busy_ms / 1e3 / traced_wall),
+         cold_wall_s=cold_wall, **idle,
          pods_per_s=n_pods / wall, probes=tally.get("probe", 0),
          scans=tally.get("scan", 0), scan_pods=tally.get("scan_pods", 0),
          kernel_launches=launches, launches_by_shape=by_shape,
          cpu_wall_s=cpu_wall, equal_to_cpu=True, pods_per_node=10)
-    return launches, by_shape
+    return launches, by_shape, names, wall
 
 
 def reset(*kernels) -> None:
     for K in kernels:
         K.LAUNCHES = 0
         K.LAUNCHES_BY_SHAPE.clear()
+
+
+def counted_kernels(*wrappers) -> dict:
+    """{the kernel's symbol in a profiler trace: its wrapper module} for
+    device_busy_ms."""
+    symbols = {"probe_kernel": "resource_probe_kernel",
+               "zreplay_kernel": "zreplay_kernel",
+               "preempt_kernel": "victim_score_kernel"}
+    return {symbols[m.__name__.rsplit(".", 1)[1]]: m for m in wrappers}
 
 
 def phase_zoned_density(PK, ZK, T, ClusterState, TorchScheduleAlgorithm, S,
@@ -743,16 +804,13 @@ def phase_zoned_density(PK, ZK, T, ClusterState, TorchScheduleAlgorithm, S,
     zone_of = {n.metadata.name: n.metadata.labels.get(S.ZONE) for n in nodes}
     for n in names:
         per_zone[zone_of[n]] = per_zone.get(zone_of[n], 0) + 1
-    busy_ms, traced_wall = device_busy_ms(
+    idle = idle_fields(*device_busy_ms(
         lambda: TorchScheduleAlgorithm(device="cuda").schedule_backlog(
-            pods, state))
+            pods, state), counted_kernels(PK, ZK)))
     emit("zoned_density", nodes=n_nodes, pods=n_pods, wall_s=wall,
          cold_wall_s=cold_wall, pods_per_s=n_pods / wall,
          spec_replay_wall_s=spec_wall, spec_over_device=spec_wall / wall,
-         traced_wall_s=traced_wall, device_busy_ms=busy_ms,
-         device_idle_share=(None if busy_ms is None
-                            else 1.0 - busy_ms / 1e3 / traced_wall),
-         dispatches=tally, spec_dispatches=spec_tally, k1_launches=k1,
+         **idle, dispatches=tally, spec_dispatches=spec_tally, k1_launches=k1,
          k1_launches_by_shape=k1_shapes, k3_launches=k3,
          k3_launches_by_shape=k3_shapes, pods_per_zone=per_zone,
          equal_to_spec_replay=True)
@@ -915,6 +973,8 @@ def host_jobs(pool, S) -> dict:
         jobs[f"policy_cpu_{name}"] = pool.apply_async(
             policy_cpu_names, (name, *POLICY_SIZE))
     jobs["gang_cpu"] = pool.apply_async(gang_cpu_flow, (GANG_SIZE,))
+    jobs["daemon_gang_cpu"] = pool.apply_async(
+        daemon_gang_cpu_flow, (DAEMON_GANG_SIZE, DAEMON_GANG_RETRIES))
     return jobs
 
 
@@ -924,22 +984,34 @@ def worker_init() -> None:
 
 
 class Stopwatch:
-    """Adds up the seconds spent in obj.<name> (a module's function or an
-    instance's method) while it is entered, by wrapping the attribute."""
+    """Adds up the seconds spent in obj.<name> (a module's function, an
+    instance's method, or a class's method for every instance) while it
+    is entered, by wrapping the attribute; `each` keeps every call's
+    seconds and, given note, `notes` note(result) of every call."""
 
-    def __init__(self, obj, name):
-        self.obj, self.name, self.seconds, self.calls = obj, name, 0.0, 0
+    def __init__(self, obj, name, note=None):
+        self.obj, self.name, self.note = obj, name, note
+        self.reset()
+
+    def reset(self):
+        self.seconds, self.calls, self.each, self.notes = 0.0, 0, [], []
 
     def __enter__(self):
         self.orig = orig = getattr(self.obj, self.name)
 
         def timed(*args, **kw):
             t0 = time.perf_counter()
+            out = None
             try:
-                return orig(*args, **kw)
+                out = orig(*args, **kw)
+                return out
             finally:
-                self.seconds += time.perf_counter() - t0
+                dt = time.perf_counter() - t0
+                self.seconds += dt
                 self.calls += 1
+                self.each.append(dt)
+                if self.note is not None:
+                    self.notes.append(self.note(out))
 
         setattr(self.obj, self.name, timed)
         return self
@@ -1022,8 +1094,9 @@ def phase_policy(PK, ZK, T, ClusterState, S, TorchScheduleAlgorithm,
             raise AssertionError(f"policy {name}: pod {i} went to "
                                  f"{names[i]} on the card, {cpu_names[i]} "
                                  f"on the CPU")
-        busy_ms, traced_wall = device_busy_ms(
-            lambda: algo().schedule_backlog(tr_pods, tr_state))
+        idle = idle_fields(*device_busy_ms(
+            lambda: algo().schedule_backlog(tr_pods, tr_state),
+            counted_kernels(PK, ZK)))
         small_names = algo().schedule_backlog(small_pods, small_state)
         want, oracle_s = jobs[f"policy_oracle_{name}"].get()
         if small_names != want:
@@ -1038,10 +1111,7 @@ def phase_policy(PK, ZK, T, ClusterState, S, TorchScheduleAlgorithm,
              replay_spec_share=spec.seconds / wall, dispatches=tally,
              k1_launches=k1, k1_launches_by_shape=k1_shapes,
              k3_launches=k3, cpu_worker_wall_s=cpu_wall, equal_to_cpu=True,
-             traced_pods=len(tr_pods), traced_wall_s=traced_wall,
-             device_busy_ms=busy_ms,
-             device_idle_share=(None if busy_ms is None
-                                else 1.0 - busy_ms / 1e3 / traced_wall),
+             traced_pods=len(tr_pods), **idle,
              zones_per_service=sorted({len(z) for z in spread.values()}),
              max_zone_gap=max(gaps),
              oracle_nodes=n_s, oracle_pods=len(small_pods),
@@ -1258,6 +1328,196 @@ def phase_gangs(PK, VK, jobs):
     return k1, k1_shapes, k6, k6_shapes
 
 
+# -- phase 9: the daemon's scheduling core -----------------------------------
+
+
+def phase_daemon(PK, ZK, T, S, TorchScheduleAlgorithm, one_shot_names,
+                 one_shot_wall):
+    """9a: the density shape through the daemon's scheduling core on the
+    card: a SchedulerCache fed the nodes, TorchScheduleAlgorithm(cache=)
+    warmed up for them, core.Scheduler.schedule_one until the queue is
+    empty (default max_batch) and the bind pool. Every pod bound, the
+    names of phase 4's one-shot call, every wave after the first from the
+    incremental view, K1 launched. -> (K1 launches, K1 shapes)."""
+    from kubernetes_tpu_torch.scheduler import cache as C
+    from kubernetes_tpu_torch.scheduler import core
+    from kubernetes_tpu_torch.scheduler import gang as G
+    from kubernetes_tpu_torch.snapshot.incremental import IncrementalEncoder
+
+    n_nodes, n_pods = DAEMON_SIZE
+    nodes = S.density_nodes(T, n_nodes)
+    pods = S.pause_pods(T, n_pods)
+    view = Stopwatch(IncrementalEncoder, "wave_view",
+                     note=lambda out: out is not None and out[0] is not None)
+    algo_sw = Stopwatch(TorchScheduleAlgorithm, "schedule_backlog",
+                        note=lambda out: len(out or ()))
+    bind_sw = Stopwatch(core.Scheduler, "_assume_and_bind_wave")
+    algos, marks = [], {}
+
+    def algorithm(cache):
+        algo = TorchScheduleAlgorithm(device="cuda", cache=cache)
+        t0 = time.perf_counter()
+        algo.warmup(n_nodes)
+        torch.cuda.synchronize()
+        marks["warmup_s"] = time.perf_counter() - t0
+        marks["stats"] = dict(algo._wave.stats)
+        algos.append(algo)
+        for sw in (view, algo_sw, bind_sw):
+            sw.reset()
+        reset(PK, ZK)
+        torch.cuda.synchronize()
+        marks["ends"] = [time.perf_counter()]
+        return algo
+
+    with view, algo_sw, bind_sw:
+        out = S.daemon_flow(C, core, G, algorithm, nodes, backlog=pods,
+                            on_wave=lambda: marks["ends"].append(
+                                time.perf_counter()))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - marks["ends"][0]
+    k1, k1_shapes = PK.LAUNCHES, shapes(PK.LAUNCHES_BY_SHAPE)
+    algo = algos[0]
+    binds = out["binds"]
+    if out["errors"] or len(binds) != n_pods:
+        raise AssertionError(f"daemon core: {len(binds)} of {n_pods} bound, "
+                             f"{len(out['errors'])} errors")
+    names = [binds.get(p.metadata.name) for p in pods]
+    if names != one_shot_names:
+        i = next(i for i, (a, b) in enumerate(zip(names, one_shot_names))
+                 if a != b)
+        raise AssertionError(f"daemon core: pod {i} went to {names[i]}, "
+                             f"the one-shot call chose {one_shot_names[i]}")
+    if out["cycles"] < 13 or len(view.notes) != out["cycles"]:
+        raise AssertionError(f"daemon core: {out['cycles']} cycles, "
+                             f"{len(view.notes)} wave views")
+    if not all(view.notes[1:]):
+        raise AssertionError(f"daemon core: a wave after the first took the "
+                             f"full encode: {view.notes}")
+    if k1 <= 0:
+        raise AssertionError("daemon core never launched K1")
+    ends = marks["ends"]
+    waves = [{"pods": n, "wave_view_s": v, "algorithm_s": a,
+              "assume_bind_s": b, "cycle_s": e1 - e0, "incremental": inc}
+             for n, v, a, b, inc, e0, e1 in zip(
+                 algo_sw.notes, view.each, algo_sw.each, bind_sw.each,
+                 view.notes, ends, ends[1:])]
+    # the resident tables' counts over the daemon's waves, warmup's left out
+    stats = {k: v - (0 if k == "wave_table_bytes" else marks["stats"][k])
+             for k, v in algo._wave.stats.items()}
+    idle = idle_fields(*device_busy_ms(
+        lambda: S.daemon_flow(
+            C, core, G,
+            lambda cache: TorchScheduleAlgorithm(device="cuda", cache=cache),
+            nodes, backlog=pods),
+        counted_kernels(PK, ZK)))
+    emit("daemon", nodes=n_nodes, pods=n_pods, cycles=out["cycles"],
+         wall_s=wall, pods_per_s=n_pods / wall,
+         one_shot_wall_s=one_shot_wall, warmup_s=marks["warmup_s"],
+         wave_view_s=view.seconds, wave_view_share=view.seconds / wall,
+         algorithm_s=algo_sw.seconds, assume_bind_s=bind_sw.seconds,
+         waves=waves, table_stats=stats,
+         table_bytes_reused_per_wave=stats["table_bytes_reused"] / max(
+             1, stats["waves"]),
+         k1_launches=k1, k1_launches_by_shape=k1_shapes, **idle,
+         all_bound=True, equal_to_one_shot=True,
+         incremental_after_first=True)
+    return k1, k1_shapes
+
+
+def daemon_gang_flow(device, size, retries, on_start=None):
+    """9b's flow on `device`: phase 8's gang scenario at `size` (nodes,
+    bound priority-0 pods per node, singletons, gangs, members per gang,
+    members of the priority-10 gang) through scenarios.daemon_flow with
+    the GangDirector wired in; the parked big gang is queued again up to
+    `retries` times. on_start(), when given, is called once the algorithm
+    is warm, just before the loop (the card's run resets its launch
+    counts there). -> the flow's outcome with "wall_s", the seconds from
+    on_start to the end."""
+    from kubernetes_tpu_torch.api import types as T
+    from kubernetes_tpu_torch.harness import scenarios as S
+    from kubernetes_tpu_torch.scheduler import cache as C
+    from kubernetes_tpu_torch.scheduler import core
+    from kubernetes_tpu_torch.scheduler import gang as G
+    from kubernetes_tpu_torch.scheduler.algorithm import (
+        TorchScheduleAlgorithm,
+    )
+
+    n_nodes, per_node, singles, gangs, members, big = size
+    nodes, bound = S.bound_cluster(T, n_nodes, per_node)
+    wave, groups = S.gang_wave(T, singles, gangs, members, big)
+    marks = {}
+
+    def algorithm(cache):
+        algo = TorchScheduleAlgorithm(device=device, cache=cache)
+        algo.warmup(n_nodes)
+        if on_start is not None:
+            on_start()
+        marks["t0"] = time.perf_counter()
+        return algo
+
+    out = S.daemon_flow(C, core, G, algorithm, nodes, bound, wave,
+                        groups=groups, retries=retries,
+                        director_kw={"device": device})
+    out["wall_s"] = time.perf_counter() - marks["t0"]
+    out["layout"] = [(g.metadata.name, g.spec.min_member) for g in groups]
+    return out
+
+
+def daemon_gang_cpu_flow(size, retries):
+    """daemon_gang_flow on the CPU, run in a worker process (host_jobs):
+    -> (its outcome, seconds)."""
+    t0 = time.perf_counter()
+    out = daemon_gang_flow("cpu", size, retries)
+    return out, time.perf_counter() - t0
+
+
+def phase_daemon_gangs(PK, VK, jobs):
+    """9b: daemon_gang_flow on the card against the same flow on the CPU
+    (jobs["daemon_gang_cpu"]): equal binds, errors, statuses, victims and
+    cycles; the short gang parked, no gang partly bound, the big gang
+    bound whole after its victims, none of them at priority 10 or above;
+    K1 and K6 launched. -> (K1 launches, K6 launches)."""
+    def reset_counts():
+        reset(PK, VK)
+        torch.cuda.synchronize()
+
+    out = daemon_gang_flow("cuda", DAEMON_GANG_SIZE, DAEMON_GANG_RETRIES,
+                           on_start=reset_counts)
+    k1, k6 = PK.LAUNCHES, VK.LAUNCHES
+    if k1 <= 0 or k6 <= 0:
+        raise AssertionError(f"the daemon's gang flow launched K1 {k1}, K6 "
+                             f"{k6} times")
+    cpu, cpu_s = jobs["daemon_gang_cpu"].get()
+    for key in ("binds", "errors", "statuses", "victims", "cycles"):
+        if out[key] != cpu[key]:
+            raise AssertionError(f"daemon gang flow: the card's {key} differ "
+                                 f"from the CPU run's")
+    binds = out["binds"]
+    n_nodes, per_node, singles, gangs, members, big = DAEMON_GANG_SIZE
+    placed = 0
+    for name, min_member in out["layout"]:
+        bound = sum(n.rsplit("-", 1)[0] == name for n in binds)
+        whole = {"short": (0,), "big": (min_member,)}.get(
+            name, (0, min_member))
+        if bound not in whole:
+            raise AssertionError(f"gang {name}: {bound} of {min_member} "
+                                 f"members bound")
+        placed += bound == min_member
+    if not out["victims"]:
+        raise AssertionError("the big gang preempted no one")
+    if any(n.startswith("big-") for n in out["victims"]):
+        raise AssertionError("the priority-10 gang preempted its own member")
+    emit("daemon_gangs", nodes=n_nodes, bound_pods=n_nodes * per_node,
+         singletons=singles, gangs=gangs, members=members, big_members=big,
+         retries=DAEMON_GANG_RETRIES, cycles=out["cycles"],
+         bound=len(binds), gangs_placed=placed,
+         victims=len(out["victims"]), errors=len(out["errors"]),
+         wall_s=out["wall_s"],
+         cpu_worker_wall_s=cpu_s, cpu_wall_s=cpu["wall_s"],
+         k1_launches=k1, k6_launches=k6, equal_to_cpu=True)
+    return k1, k6
+
+
 def shapes(by_shape: dict) -> list:
     """K1's {(J, N): launches} -> [{"J", "N", "G", "launches"}, ...] in
     order. K1 has no run axis: the grouped probe launches it once per run
@@ -1351,8 +1611,8 @@ def run(args, jobs) -> int:
              new_ptxas=k3_ptxas)
     k3_times, k3_err = phase_k3(ZK, S, chain_us[K3_THREADS], old_lib)
     k6_times, k6_err = phase_k6(VK, S, P)
-    launches, density_shapes = phase_main_path(
-        PK, ZK, T, ClusterState, TorchScheduleAlgorithm, S)
+    launches, density_shapes, density_names, density_wall = \
+        phase_main_path(PK, ZK, T, ClusterState, TorchScheduleAlgorithm, S)
     z_k1, z_k1_shapes, z_k3, z_k3_shapes = phase_zoned_density(
         PK, ZK, T, ClusterState, TorchScheduleAlgorithm, S,
         replay.replay_spec)
@@ -1366,6 +1626,9 @@ def run(args, jobs) -> int:
     phase_extender(T, S, scheme, TorchExtenderServer)
     gang_k1, gang_k1_shapes, gang_k6, gang_k6_shapes = phase_gangs(
         PK, VK, jobs)
+    daemon_k1, daemon_k1_shapes = phase_daemon(
+        PK, ZK, T, S, TorchScheduleAlgorithm, density_names, density_wall)
+    daemon_gang_k1, daemon_gang_k6 = phase_daemon_gangs(PK, VK, jobs)
 
     # the density path probes J=128 over the 5,000 nodes padded to 8,192;
     # the zoned density path runs one 50,000-pick run in a 65,536 bucket
@@ -1385,14 +1648,16 @@ def run(args, jobs) -> int:
                              "mixed": mixed_launches,
                              **{f"policy_{k}": v[0]
                                 for k, v in policy.items()},
-                             "gangs": gang_k1},
+                             "gangs": gang_k1, "daemon": daemon_k1,
+                             "daemon_gangs": daemon_gang_k1},
         "launches_by_shape": {"density": density_shapes,
                               "zoned_density": z_k1_shapes,
                               "many_templates": tpl_k1_shapes,
                               "mixed": mixed_shapes,
                               **{f"policy_{k}": v[1]
                                  for k, v in policy.items()},
-                              "gangs": gang_k1_shapes},
+                              "gangs": gang_k1_shapes,
+                              "daemon": daemon_k1_shapes},
         "max_abs_err": max_err,
         "matches_plain": True,
         "ms": k1["ms"],
@@ -1435,7 +1700,8 @@ def run(args, jobs) -> int:
         "source": "kubernetes_tpu_torch/csrc/preempt_kernel.cu",
         "replaces": "kubernetes_tpu/ops/preempt.py:42",
         "launches": gang_k6,
-        "launches_by_path": {"gangs": gang_k6},
+        "launches_by_path": {"gangs": gang_k6,
+                             "daemon_gangs": daemon_gang_k6},
         "launches_by_shape": {"gangs": gang_k6_shapes},
         "max_abs_err": k6_err,
         "matches_plain": True,

@@ -20,14 +20,28 @@ Layout:
                             device replay (zreplay) and the wave driver
                             (wave)
   scheduler/algorithm.py    TorchScheduleAlgorithm: pods + cluster
-                            state -> node names
-  scheduler/                the provider registry (plugins, copied;
-                            algorithmprovider), Policy files (policy,
-                            copied), their resolution to an algorithm
-                            (factory), the inbound scheduler-extender
-                            service (extender_server) and the gang
-                            director with priority preemption (gang)
+                            state -> node names; with a cache, the
+                            daemon mode (incremental snapshot, resident
+                            device tables, warmup)
+  scheduler/                the scheduling core (cache, core, copied:
+                            the scheduler cache and the scheduleOne
+                            loop), the provider registry (plugins,
+                            copied; algorithmprovider), Policy files
+                            (policy, copied), their resolution to an
+                            algorithm (factory), the outbound extender
+                            (extender, copied), the inbound
+                            scheduler-extender service (extender_server)
+                            and the gang director with priority
+                            preemption (gang)
+  snapshot/incremental.py   the incremental encoder (copied): the node
+                            tables patched per cache event
   metrics/                  the scheduler's counters (copied)
+  utils/, analysis/, trace/ the host utilities (clocks, work queues, flow
+                            control, the step tracer), the race and
+                            lock-order sanitizers and the span and
+                            phase-timer layer the core calls (copied;
+                            analysis/__init__.py and trace/profile.py
+                            keep what the port can run)
   runtime/                  the API objects' JSON codec (copied)
   hyperkube.py              `python -m kubernetes_tpu_torch.hyperkube
                             extender`

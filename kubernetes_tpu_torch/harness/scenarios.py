@@ -10,6 +10,7 @@ scheduler_perf density test (nodes: 4 CPU / 32Gi / 110 pods; pods:
 
 from __future__ import annotations
 
+import collections
 import json
 import random
 
@@ -810,3 +811,113 @@ VICTIM_CASES = (
     ("gang phase N=8192 C=32", 8192, 32, "density"),
     ("fuzz at the gang shape N=8192 C=32", 8192, 32, "fuzz"),
 )
+
+
+# -- the daemon core: the scheduler cache and the scheduling loop -------------
+
+def scheduler_cache(C, nodes, bound=()):
+    """A SchedulerCache of the cache module C (either package's
+    scheduler/cache.py) holding `nodes` and the bound pods `bound`, the
+    latter watch-confirmed (add_pod), as the informers would fill it."""
+    cache = C.SchedulerCache()
+    for n in nodes:
+        cache.add_node(n)
+    for p in bound:
+        cache.add_pod(p)
+    return cache
+
+
+def daemon_config(core, cache, algorithm, backlog, director=None, **kw):
+    """A core.SchedulerConfig (core: either package's scheduler/core.py)
+    over a pre-queued backlog, in place of the factory's informers, FIFO
+    and binder: next_pod and drain_waiting pop a deque, binder_many and
+    binder record (pod, host) and report success, error records (pod,
+    error). -> (config, {"queue": the deque, "binds": [(pod, host)],
+    "errors": [(pod, error)]}); put pods back on the queue to schedule
+    them again."""
+    queue = collections.deque(backlog)
+    binds, errors = [], []
+
+    def next_pod():
+        return queue.popleft() if queue else None
+
+    def drain_waiting(n):
+        return [queue.popleft() for _ in range(min(n, len(queue)))]
+
+    def binder_many(pairs):
+        binds.extend(pairs)
+        return [{"status": "Success"}] * len(pairs)
+
+    cfg = core.SchedulerConfig(
+        scheduler_cache=cache, algorithm=algorithm,
+        binder=lambda pod, host: binds.append((pod, host)),
+        binder_many=binder_many, next_pod=next_pod,
+        drain_waiting=drain_waiting,
+        error=lambda pod, err: errors.append((pod, err)),
+        gang_director=director, **kw)
+    return cfg, {"queue": queue, "binds": binds, "errors": errors}
+
+
+def daemon_director(G, cache, pod_groups, statuses, evicted, **kw):
+    """A GangDirector of the gang module G wired as the JAX factory wires
+    it from its informers (kubernetes_tpu/scheduler/factory.py
+    _make_config), over lists: pod_group_lister lists `pod_groups`,
+    status_updater appends (namespace, name, status) to statuses, and the
+    preemptor appends its victims to evicted and removes them from the
+    cache, as the pod informer's delete events would."""
+    def preempt(victims):
+        evicted.extend(victims)
+        for v in victims:
+            cache.remove_pod(v)
+
+    return G.GangDirector(
+        pod_group_lister=lambda: list(pod_groups),
+        status_updater=lambda ns, name, st: statuses.append(
+            (ns, name, dict(st))),
+        preemptor=preempt, **kw)
+
+
+def daemon_flow(C, core, G, algorithm, nodes, bound=(), backlog=(),
+                groups=None, retries=0, on_wave=None, director_kw=None,
+                **cfg_kw) -> dict:
+    """A backlog through the scheduling core of either package (C, core,
+    G: its scheduler/cache.py, core.py and gang.py): a scheduler_cache of
+    `nodes` and `bound`, the algorithm algorithm(cache) subscribed to it,
+    a daemon_config over `backlog` (cfg_kw: SchedulerConfig fields such
+    as max_batch) and, when `groups` (PodGroups) is given, a
+    daemon_director. Scheduler.schedule_one runs until the queue is empty,
+    called directly, not through Scheduler.run's loop, which logs and
+    swallows an exception: here one propagates; then the bind pool is
+    waited for. A gang parked for preemption is queued again, up to
+    `retries` times, as the factory's error handler re-queues it.
+    on_wave(), when given, is called after each cycle. -> {"binds": {pod
+    name: host}, "errors": [(pod name, error text)], "statuses":
+    [(namespace, name, status)], "victims": [pod name], "cycles": n}."""
+    cache = scheduler_cache(C, nodes, bound)
+    algo = algorithm(cache)
+    statuses, evicted = [], []
+    director = None
+    if groups is not None:
+        director = daemon_director(G, cache, groups, statuses, evicted,
+                                   **(director_kw or {}))
+    cfg, out = daemon_config(core, cache, algo, backlog, director=director,
+                             **cfg_kw)
+    sched = core.Scheduler(cfg)
+    errors, cycles = [], 0
+    for _ in range(retries + 1):
+        while out["queue"]:
+            sched.schedule_one()
+            cycles += 1
+            if on_wave is not None:
+                on_wave()
+        sched._bind_pool.shutdown(wait=True)
+        retry = [p for p, e in out["errors"] if "preempting" in str(e)]
+        errors += [(p.metadata.name, str(e)) for p, e in out["errors"]]
+        out["errors"].clear()
+        if not retry:
+            break
+        out["queue"].extend(retry)
+    return {"binds": {p.metadata.name: h for p, h in out["binds"]},
+            "errors": errors, "statuses": statuses,
+            "victims": [v.metadata.name for v in evicted],
+            "cycles": cycles}

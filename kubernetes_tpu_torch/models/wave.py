@@ -44,10 +44,19 @@ takes the run machinery at any length, never the device replay, and
 parks whole (no member placed, nothing folded) unless every member gets
 a node, in run_single and in host_group_replay alike.
 
+The snapshot's node tables stay on the device between waves, as in the
+JAX driver (_to_dev_many): a field the caller names in `keep` (the
+incremental encoder's unchanged fields), or whose host mirror shows no
+changed row, reuses its tensor; one with at most SCATTER_FRAC of its
+rows changed is updated by row; any other is shipped anew; a new
+`source` (snapshot producer) clears the cache. `stats` counts the ships,
+reuses, scatters and bytes. The carry starts each wave as a copy of its
+cached tensors, since the wave's folds update it in place.
+
 Left to later slices, none of which changes a decision: the pipeline,
-packed buffers, quantized and resident tables, the mesh. The
-run/eligibility/group helpers below are verbatim copies of the JAX
-driver's host code, except group_buffer (see its docstring).
+packed buffers, quantized tables, the mesh. The run/eligibility/group
+helpers below are verbatim copies of the JAX driver's host code, except
+group_buffer (see its docstring).
 """
 
 from __future__ import annotations
@@ -60,6 +69,7 @@ import torch
 
 from kubernetes_tpu_torch.models.batch import (
     BALANCED_ALLOCATION,
+    CARRY_FIELDS,
     EQUAL,
     IMAGE_LOCALITY,
     INTER_POD_AFFINITY,
@@ -85,7 +95,11 @@ from kubernetes_tpu_torch.models.replay import ReplayResult, replay_fast
 from kubernetes_tpu_torch.models.zreplay import ZReplay
 from kubernetes_tpu_torch.ops import services as SV
 from kubernetes_tpu_torch.snapshot.carry import place, to_device
-from kubernetes_tpu_torch.snapshot.encode import ClusterSnapshot, PodBatch
+from kubernetes_tpu_torch.snapshot.encode import (
+    RES_CARRY_FIELDS,
+    ClusterSnapshot,
+    PodBatch,
+)
 from kubernetes_tpu_torch.snapshot.pad import next_pow2
 
 I64 = torch.int64
@@ -494,7 +508,8 @@ def split_runs(rep_idx: np.ndarray,
 
 # A verbatim copy (tests/test_torch_isolation.py FUNCTION_COPIES): its
 # docstring's "mesh wave drivers" is the JAX package's. The port has no
-# mesh driver yet (ROADMAP.md queue 1, parallel/mesh.py).
+# mesh driver: parallel/mesh.py is not ported (ROADMAP.md queue 1 item
+# 5), so only WaveScheduler calls it here.
 def classify_runs(config: SchedulerConfig, snap: ClusterSnapshot,
                   batch: PodBatch, runs, num_values: int, min_run: int,
                   *, device_zoned: bool = False, zoned: bool = False,
@@ -613,9 +628,97 @@ class WaveScheduler:
                                 self._apply_group_fn)
         # per-wave tally of device dispatches, the JAX driver's keys:
         # "probe", "group_probe", "zreplay", "zreplay_group", "apply"
-        # (a fold no probe carried), "scan" (flushes to the serial scan);
-        # and "scan_pods", the pods the scan decided
+        # (a fold no probe carried), "scan" (flushes to the serial scan),
+        # "table_scatter" (a resident table updated by row); and
+        # "scan_pods", the pods the scan decided
         self.dispatches: dict = {}
+        # device-resident snapshot fields across waves: field -> (host
+        # shape, host dtype, device tensor, host MIRROR). The caller's
+        # `keep` names fields unchanged since the previous wave; others
+        # are reused when the mirror shows no changed row, updated by
+        # row when few rows moved, and shipped anew otherwise.
+        # `_dev_source` names the snapshot's producer: a from-scratch
+        # encoder's vocab bit and slot assignments differ from the
+        # incremental encoder's, so a producer change clears the cache.
+        self._dev: dict = {}
+        self._dev_source: Optional[str] = None
+        # table shipment accounting, per wave and in total
+        self.stats = {
+            "waves": 0, "table_ships": 0, "table_reuses": 0,
+            "table_scatters": 0, "wave_table_bytes": 0,
+            "table_bytes_total": 0,
+            # bytes a reuse or scatter did not ship
+            "table_bytes_reused": 0,
+        }
+
+    # fraction of changed rows above which a row update loses to shipping
+    # the table anew (the JAX driver's SCATTER_FRAC)
+    SCATTER_FRAC = 0.25
+    # the carry's tables besides the resource block and the round-robin
+    # counter, which are placed fresh every wave
+    _CARRY_FIELDS = CARRY_FIELDS[1:3] + CARRY_FIELDS[4:]
+
+    @staticmethod
+    def _rows_neq(mirror, host):
+        """Per-row changed mask, NaN-aware (numval uses NaN fills)."""
+        neq = mirror != host
+        if mirror.dtype.kind == "f":
+            neq &= ~(np.isnan(mirror) & np.isnan(host))
+        if neq.ndim == 1:
+            return neq
+        if neq.size == 0:
+            return np.zeros(neq.shape[0], bool)
+        return neq.reshape(neq.shape[0], -1).any(axis=1)
+
+    @staticmethod
+    def _nbytes(t: torch.Tensor) -> int:
+        return t.numel() * t.element_size()
+
+    def _to_dev_many(self, snap: ClusterSnapshot, fields, keep: frozenset):
+        """Device tensors for `fields` of snap, from the resident cache
+        where it holds them (kubernetes_tpu/models/wave.py
+        _to_dev_many). The placement dtype is the port's rule for the
+        host dtype (snapshot/carry.place): the JAX driver's narrowing to
+        a quantized dtype belongs to ROADMAP.md queue 1 item 3. A row
+        update is index_copy_ on the device, the JAX driver's jitted
+        `.at[rows].set`."""
+        out = {}
+        st = self.stats
+        for f in fields:
+            host = np.asarray(getattr(snap, f))
+            ent = self._dev.get(f)
+            if ent is not None and ent[0] == host.shape \
+                    and ent[1] == host.dtype:
+                dev = ent[2]
+                changed = (None if f in keep
+                           else np.nonzero(self._rows_neq(ent[3], host))[0])
+                if changed is None or changed.size == 0:
+                    out[f] = dev
+                    st["table_reuses"] += 1
+                    st["table_bytes_reused"] += self._nbytes(dev)
+                    continue
+                if host.ndim >= 1 and \
+                        changed.size <= self.SCATTER_FRAC * host.shape[0]:
+                    rows = torch.from_numpy(changed).to(self.device)
+                    vals = place(host[changed], self.device)
+                    dev.index_copy_(0, rows, vals)
+                    ent[3][changed] = host[changed]
+                    out[f] = dev
+                    moved = self._nbytes(rows) + self._nbytes(vals)
+                    st["table_scatters"] += 1
+                    st["wave_table_bytes"] += moved
+                    st["table_bytes_total"] += moved
+                    st["table_bytes_reused"] += max(
+                        0, self._nbytes(dev) - moved)
+                    self._count("table_scatter")
+                    continue
+            dev = place(host, self.device)
+            self._dev[f] = (host.shape, host.dtype, dev, host.copy())
+            out[f] = dev
+            st["table_ships"] += 1
+            st["wave_table_bytes"] += self._nbytes(dev)
+            st["table_bytes_total"] += self._nbytes(dev)
+        return out
 
     def _count(self, key: str, n: int = 1) -> None:
         self.dispatches[key] = self.dispatches.get(key, 0) + n
@@ -718,13 +821,37 @@ class WaveScheduler:
 
     # -- backlog -------------------------------------------------------------
 
-    def _wave_setup(self, snap: ClusterSnapshot, last_node_index: int):
-        """Place the wave's tables on the device once:
-        -> (static, carry, num_zones, num_values)."""
+    def _wave_setup(self, snap: ClusterSnapshot, keep: frozenset,
+                    source: str, last_node_index: int):
+        """The wave's tables on the device, from the resident cache where
+        it holds them: -> (static, carry, num_zones, num_values). Resets
+        the wave's dispatch tally, and the cache on a producer change.
+        The carry is a fresh copy of its cached tensors (the folds update
+        it in place; an unchanged table must reach the next wave as it
+        was); the resource block and the round-robin counter are placed
+        anew, as in the JAX driver."""
+        if source != self._dev_source:
+            self._dev.clear()
+            self._dev_source = source
         self.dispatches = {}
-        return (self.scan.place_static(snap),
-                self.scan.initial_carry(snap, last_node_index),
-                num_zones_of(snap), int(snap.svc_num_values))
+        self.stats["waves"] += 1
+        self.stats["wave_table_bytes"] = 0
+        dev = self._to_dev_many(
+            snap, tuple(BatchScheduler.STATIC_FIELDS) + self._CARRY_FIELDS,
+            keep)
+        static = {f: dev[f] for f in BatchScheduler.STATIC_FIELDS}
+        static.update({k: place(v, self.device) for k, v in
+                       BatchScheduler.config_static(self.config,
+                                                    snap).items()})
+        carry = {f: dev[f].clone() for f in self._CARRY_FIELDS}
+        carry["res"] = place(np.stack([np.asarray(getattr(snap, f))
+                                       for f in RES_CARRY_FIELDS]),
+                             self.device)
+        # selectHost's persistent round-robin counter
+        carry["last_idx"] = torch.tensor(int(last_node_index), dtype=I64,
+                                         device=self.device)
+        carry = {k: carry[k] for k in CARRY_FIELDS}
+        return static, carry, num_zones_of(snap), int(snap.svc_num_values)
 
     def _run_device_replay(self, static, carry, prev_pod, prev_counts,
                            pod, num_zones, num_values, J, rows, K,
@@ -757,11 +884,18 @@ class WaveScheduler:
         batch: PodBatch,
         rep_idx: np.ndarray,
         last_node_index: int = 0,
+        keep: frozenset = frozenset(),
+        source: str = "full",
         gangs: Optional[Sequence[dict]] = None,
     ) -> Tuple[np.ndarray, dict, int]:
         """-> (chosen i32[P] node ids with -1 == unschedulable, final
         carry, final lastNodeIndex). snap may be node-padded; batch holds
         one row per unique pod; rep_idx maps backlog position -> row.
+        `keep` (from the incremental encoder) names snapshot fields
+        unchanged since the previous wave: their device tensors are
+        reused without a comparison. `source` names the snapshot's
+        producer; a producer change clears the device cache (ids and bit
+        positions are producer-relative).
 
         `gangs` marks all-or-nothing spans of the backlog, as in the JAX
         driver: [{"start", "length", "score_add": i64[N] | None}]. Each
@@ -776,7 +910,7 @@ class WaveScheduler:
         binds. None/[] = no gangs, and the wave is bit-identical to the
         driver without them."""
         static, carry, num_zones, num_values = self._wave_setup(
-            snap, last_node_index)
+            snap, keep, source, last_node_index)
         pods_dev = to_device(batch, self.device, BatchScheduler.POD_FIELDS)
         P = len(rep_idx)
         out = np.full(P, -1, np.int32)

@@ -1,4 +1,6 @@
-"""The port's scheduler component: the ScheduleAlgorithm
-(algorithm.TorchScheduleAlgorithm), the provider registry (plugins,
+"""The port's scheduler component: the scheduler cache (cache) and the
+scheduling loop (core), the ScheduleAlgorithm (algorithm.
+TorchScheduleAlgorithm), the provider registry (plugins,
 algorithmprovider), Policy files (policy) and their resolution (factory),
-and the inbound scheduler-extender service (extender_server)."""
+the outbound HTTP extender (extender), the inbound scheduler-extender
+service (extender_server) and the gang director (gang)."""

@@ -7,6 +7,7 @@ import os
 import pathlib
 import subprocess
 import sys
+import textwrap
 
 import pytest
 
@@ -24,6 +25,11 @@ COPIES = (
     "models/replay.py", "models/hosttab.py", "native/replay.c",
     "scheduler/plugins.py", "scheduler/policy.py", "runtime/__init__.py",
     "runtime/scheme.py", "metrics/__init__.py", "metrics/metrics.py",
+    "utils/__init__.py", "utils/clock.py", "utils/entropy.py",
+    "utils/trace.py", "utils/flowcontrol.py", "utils/workqueue.py",
+    "analysis/locks.py", "analysis/races.py", "trace/__init__.py",
+    "trace/spans.py", "scheduler/cache.py", "scheduler/core.py",
+    "scheduler/extender.py", "snapshot/incremental.py",
 )
 #: functions the port's own modules keep verbatim from their counterparts
 FUNCTION_COPIES = {
@@ -41,17 +47,33 @@ FUNCTION_COPIES = {
     "scheduler/algorithmprovider.py": (
         "DEFAULT_PROVIDER_NAME", "TPU_PROVIDER_NAME",
         "CANONICAL_PREDICATE_ORDER", "_max_pd_vols", "_register_all"),
+    "scheduler/factory.py": ("node_schedulable",),
+    "analysis/__init__.py": ("Finding", "render_report"),
+    "trace/profile.py": ("PHASES", "_ExclusiveAccountant", "_ACCOUNTANT",
+                         "_PhaseTimer", "_NullTimer", "_NULL", "_HIST",
+                         "phase_timer", "phase_totals", "exclusive_totals",
+                         "overlap_totals"),
 }
 #: functions the port keeps in another form, each with the reason its
 #: docstring records (tests/test_torch_grouped.py checks group_buffer's
 #: rows against the JAX package's packed buffer; tests/test_torch_policy.py
 #: the device providers the factory registers; tests/test_torch_gang.py the
-#: director on the CPU against the JAX package's)
+#: director on the CPU against the JAX package's; tests/test_torch_daemon.py
+#: the warmup that raises where the JAX package's logs). A name "Class.
+#: method" is a method of a top-level class.
 DEVIATIONS = {
     ("models/wave.py", "group_buffer"): "models/pack.py",
     ("scheduler/algorithmprovider.py", "_tpu_algorithm_factory"):
         "TorchScheduleAlgorithm",
     ("scheduler/gang.py", "GangDirector"): "VictimScorer(device=device)",
+    ("trace/profile.py", "install_compile_listener"): "chip_smoke.py",
+    ("scheduler/algorithm.py", "TorchScheduleAlgorithm._warm_one"):
+        "an exception propagates",
+}
+#: the JAX counterpart of a deviation whose file or name differs there
+COUNTERPARTS = {
+    ("scheduler/algorithm.py", "TorchScheduleAlgorithm._warm_one"):
+        ("scheduler/tpu_algorithm.py", "TPUScheduleAlgorithm._warm_one"),
 }
 
 
@@ -87,6 +109,13 @@ def test_import_leaves_jax_unloaded():
         "import kubernetes_tpu_torch.harness.scenarios\n"
         "import kubernetes_tpu_torch.scheduler.gang\n"
         "import kubernetes_tpu_torch.ops.preempt_kernel\n"
+        "import kubernetes_tpu_torch.scheduler.core\n"
+        "import kubernetes_tpu_torch.scheduler.cache\n"
+        "import kubernetes_tpu_torch.scheduler.extender\n"
+        "import kubernetes_tpu_torch.snapshot.incremental\n"
+        "import kubernetes_tpu_torch.utils\n"
+        "import kubernetes_tpu_torch.analysis.races\n"
+        "import kubernetes_tpu_torch.trace.profile\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'kubernetes_tpu')]\n"
         "assert not bad, bad\n"
@@ -118,8 +147,14 @@ def _normalized_copy(rel: str) -> str:
     else:
         note = "\n\n" + _copy_note(rel)
     assert note in text, f"{rel}: the copy note is missing"
-    return text.replace(note, "", 1).replace("kubernetes_tpu_torch.",
-                                             "kubernetes_tpu.")
+    return _renamed(text.replace(note, "", 1))
+
+
+def _renamed(text: str) -> str:
+    """The port's package name in imports (and dotted names) back to the
+    JAX package's."""
+    return text.replace("kubernetes_tpu_torch.", "kubernetes_tpu.").replace(
+        "from kubernetes_tpu_torch import", "from kubernetes_tpu import")
 
 
 @pytest.mark.parametrize("rel", [c for c in COPIES if c != "snapshot/pad.py"])
@@ -128,15 +163,22 @@ def test_host_copy_has_not_drifted(rel):
 
 
 def _top_level_source(path: pathlib.Path, name: str) -> str:
+    """The source of a top-level definition or assignment, or of a
+    method ("Class.method", dedented)."""
     text = path.read_text()
     lines = text.splitlines()
-    for node in ast.parse(text).body:
+    body = ast.parse(text).body
+    *outer, name = name.split(".")
+    for cls in outer:
+        body = next(n for n in body if isinstance(n, ast.ClassDef)
+                    and n.name == cls).body
+    for node in body:
         names = ([t.id for t in node.targets if isinstance(t, ast.Name)]
                  if isinstance(node, ast.Assign) else [getattr(node, "name",
                                                                None)])
         if name in names:
             start = node.lineno - 1 - len(getattr(node, "decorator_list", []))
-            return "\n".join(lines[start:node.end_lineno])
+            return textwrap.dedent("\n".join(lines[start:node.end_lineno]))
     raise AssertionError(f"{name} not found in {path}")
 
 
@@ -162,7 +204,7 @@ def test_pad_copy_deviates_only_by_pad_snapshot():
 def test_function_copy_has_not_drifted(rel, name):
     port = _top_level_source(PORT / rel, name)
     ref = _top_level_source(JAX_PKG / rel, name)
-    assert port.replace("kubernetes_tpu_torch.", "kubernetes_tpu.") == ref
+    assert _renamed(port) == ref
 
 
 @pytest.mark.parametrize("rel,name", sorted(DEVIATIONS))
@@ -170,9 +212,9 @@ def test_deviation_is_recorded(rel, name):
     """A recorded deviation exists in both packages, differs, and says in
     its docstring what it deviates from and why."""
     port = _top_level_source(PORT / rel, name)
-    ref = _top_level_source(JAX_PKG / rel, name)
-    assert port.replace("kubernetes_tpu_torch.", "kubernetes_tpu.") != ref
-    doc = ast.get_docstring(ast.parse(port).body[0])
-    assert f"Deviation from kubernetes_tpu/{rel} {name}" in \
-        " ".join(doc.split())
+    jrel, jname = COUNTERPARTS.get((rel, name), (rel, name))
+    ref = _top_level_source(JAX_PKG / jrel, jname)
+    assert _renamed(port) != ref
+    doc = " ".join(ast.get_docstring(ast.parse(port).body[0]).split())
+    assert f"Deviation from kubernetes_tpu/{jrel} {jname}" in doc
     assert DEVIATIONS[(rel, name)] in doc

@@ -2,9 +2,11 @@
 zoned pick loop K3, the victim scorer K6) against their plain versions;
 the service ops, a Policy document and the extender service's verbs
 against the same calls on the CPU; the scheduler on CUDA against the same
-call on the CPU and the port's oracle copy; and a gang director cycle
-with preemption on CUDA against the same cycle on the CPU. Each test
-skips where there is no CUDA device.
+call on the CPU and the port's oracle copy; a gang director cycle with
+preemption on CUDA against the same cycle on the CPU; and the daemon's
+scheduling core (cache, incremental encoder, resident tables,
+core.Scheduler), with and without gangs, against the same flow on the
+CPU. Each test skips where there is no CUDA device.
 
 This module imports only torch and the port, so it also runs on a
 machine without JAX:
@@ -271,3 +273,57 @@ def test_gang_cycle_on_card_matches_cpu(cuda_device):
     assert PK.LAUNCHES > k1 and VK.LAUNCHES == k6 + 1
     assert got == cycle("cpu")
     assert got[3] and None not in got[1]["hosts"]
+
+
+def daemon_flow_on(device, nodes, backlog, bound=(), groups=None, **kw):
+    """scenarios.daemon_flow with the port's modules, the algorithm
+    warmed up on `device`. -> (the flow's outcome, the algorithm)."""
+    from kubernetes_tpu_torch.scheduler import cache as C
+    from kubernetes_tpu_torch.scheduler import core
+    from kubernetes_tpu_torch.scheduler import gang as G
+
+    algos = []
+
+    def algorithm(cache):
+        algos.append(TorchScheduleAlgorithm(device=device, cache=cache))
+        algos[0].warmup(len(nodes))
+        return algos[0]
+
+    out = S.daemon_flow(C, core, G, algorithm, nodes, bound, backlog,
+                        groups=groups, director_kw={"device": device}, **kw)
+    return out, algos[0]
+
+
+def test_daemon_core_on_card_matches_cpu(cuda_device):
+    """The scheduling core (cache -> incremental encoder -> resident
+    tables -> core.Scheduler) in waves of 256 on the card: the binds of
+    the same flow on the CPU and of one schedule_backlog call, K1
+    launched, every wave from the incremental view."""
+    nodes = S.density_nodes(T, 64)
+    pods = S.pause_pods(T, 900) + S.template_pods(T, 4, 30)
+    k1 = PK.LAUNCHES
+    got, algo = daemon_flow_on(cuda_device, nodes, pods, max_batch=256)
+    assert PK.LAUNCHES > k1
+    assert got == daemon_flow_on("cpu", nodes, pods, max_batch=256)[0]
+    one = TorchScheduleAlgorithm(device="cpu").schedule_backlog(
+        pods, ClusterState.build(nodes))
+    assert [got["binds"][p.metadata.name] for p in pods] == one
+    assert got["cycles"] == 4
+    assert algo._wave._dev_source == algo._inc.source_token
+
+
+def test_daemon_gang_flow_on_card_matches_cpu(cuda_device):
+    """The gang director wired into the scheduling loop on the card: the
+    big gang preempts (K6), is queued again and binds whole; binds,
+    errors, statuses and victims equal the same flow on the CPU."""
+    nodes, bound = S.bound_cluster(T, 24, per_node=6, cpu="500m")
+    wave, groups = S.gang_wave(T, singles=20, gangs=8, members=4, big=6,
+                               big_cpu="2", short=2)
+    k6 = VK.LAUNCHES
+    got, _ = daemon_flow_on(cuda_device, nodes, wave, bound, groups,
+                            retries=2)
+    assert VK.LAUNCHES > k6
+    assert got == daemon_flow_on("cpu", nodes, wave, bound, groups,
+                                 retries=2)[0]
+    assert got["victims"]
+    assert all(got["binds"].get(f"big-{i:06d}") for i in range(6))

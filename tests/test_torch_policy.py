@@ -24,6 +24,8 @@ from kubernetes_tpu_torch.scheduler import factory as TF
 from kubernetes_tpu_torch.scheduler import plugins as TPlug
 from kubernetes_tpu_torch.scheduler import policy as TPol
 from kubernetes_tpu_torch.scheduler.algorithm import TorchScheduleAlgorithm
+from kubernetes_tpu_torch.scheduler.core import ExtendedGenericScheduler
+from kubernetes_tpu_torch.scheduler.extender import HTTPExtender
 
 import tests.test_policy_tpu as TPT
 from tests.test_torch_ops import to_port
@@ -133,7 +135,9 @@ def test_policy_file_schedules_through_the_device(tmp_path):
 def test_host_only_policies_take_the_host_path(name):
     algo = TF.create_from_config(
         TPol.load_policy(json.dumps(DOCUMENTS[name])), device="cpu")
-    assert type(algo) is PortOracle
+    # the JAX factory's host path: ExtendedGenericScheduler, here with no
+    # extenders
+    assert type(algo) is ExtendedGenericScheduler and algo.extenders == []
     nodes, pods = to_port(TPT._nodes()), to_port(TPT._pods(8))
     policy = TPol.load_policy(json.dumps(DOCUMENTS[name]))
     preds, prios = TPol.resolve_policy(policy, TPlug.PluginFactoryArgs())
@@ -143,9 +147,15 @@ def test_host_only_policies_take_the_host_path(name):
 
 
 def test_extender_policy_names_the_daemon_slice():
-    with pytest.raises(NotImplementedError, match="daemon"):
-        TF.create_from_config(TPol.load_policy(json.dumps(WITH_EXTENDER)),
-                              device="cpu")
+    """The daemon slice brought the outbound extender: a Policy with
+    extenders takes the host path with one HTTPExtender per entry
+    (tests/test_torch_daemon.py drives one against a local extender)."""
+    algo = TF.create_from_config(
+        TPol.load_policy(json.dumps(WITH_EXTENDER)), device="cpu")
+    assert type(algo) is ExtendedGenericScheduler
+    assert [(e.config.url_prefix, e.config.filter_verb, e.weight)
+            for e in algo.extenders] == [("http://x", "f", 1)]
+    assert all(type(e) is HTTPExtender for e in algo.extenders)
 
 
 @pytest.mark.parametrize("provider", ["TPUProvider", "CUDAProvider",
