@@ -101,7 +101,28 @@ non-zero:
      GangDirector wired in, the parked big gang queued again: binds,
      errors, statuses, victims and cycles equal to the same flow on the
      CPU (host_jobs), no gang partly bound, K1 and K6 launched;
-  10. the kernels line, with the launch counts of each path it drove;
+  10. the scheduler daemon on the wire: (10a) harness/perf.schedule_pods
+     at phase 4's density shape through the port's own control plane in
+     this process (APIServer, LocalTransport, the informers, the FIFO,
+     SchedulerServer on the card): every pod bound as read back from the
+     apiserver, 10 a node, the hosts in the order the loop bound them
+     equal to the one-shot schedule_backlog on the card over the
+     apiserver's nodes and as many copies of its pod, every wave from
+     wave_view, K1 launched; the harness's pods/s over its window and
+     sustained from the start of creation to the last bind, the creation
+     seconds, the waves, the phase table, K1's launches by (J, N) and the
+     idle share over the creation -> all-bound window (a trace that loses
+     K1 events is taken again, with the run); (10b) harness/perf.
+     schedule_pods_separate at 1,000 nodes x 30,000 pods: the apiserver
+     and the pod creator in their own interpreters over the binary wire,
+     the daemon on the card here; every pod bound, the hosts in loop order
+     and per node equal to the one-shot call's, the rates and the
+     apiserver's counters; (10c) into 10a's idle daemon, 200 pods one at
+     a time, each waiting for its bind: p50, p99 and max from the create
+     request to the bind's return, the port's
+     scheduler_e2e_scheduling_latency quantiles over them, and the picks
+     equal to the last 200 of the one-shot call over all 50,200 pods;
+  11. the kernels line, with the launch counts of each path it drove;
      then nvidia-smi's line, then the result line
      {"ok": true, "device": {...}}.
 
@@ -123,12 +144,15 @@ the port's package is not beside this script.
 from __future__ import annotations
 
 import argparse
+import io
 import json
+import math
 import multiprocessing
 import os
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -169,6 +193,15 @@ DAEMON_SIZE = (5000, 50000)
 #: queued again
 DAEMON_GANG_SIZE = (1000, 24, 800, 50, 16, 256)
 DAEMON_GANG_RETRIES = 3
+#: phase 10a: (nodes, pods) through the control plane in process, phase
+#: 4's north-star density shape; 10b: (nodes, pods) across processes,
+#: the shape of the JAX package's wire headline (BENCH_r10.json); 10c:
+#: the pods created one at a time into 10a's idle daemon
+WIRE_SIZE = (5000, 50000)
+WIRE_SEPARATE_SIZE = (1000, 30000)
+WIRE_LATENCY_PODS = 200
+#: 10a's runs, each traced, until one trace keeps every K1 launch
+WIRE_TRACE_TRIES = 3
 
 
 def emit(phase: str, **kw) -> None:
@@ -305,20 +338,28 @@ def device_busy_ms(fn, kernels, tries=5):
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         launched = {k: m.LAUNCHES - before[k] for k, m in kernels.items()}
-        events = dict.fromkeys(kernels, 0)
-        busy_us = 0.0
-        for ev in prof.key_averages():
-            if ev.device_type == torch.autograd.DeviceType.CUDA:
-                busy_us += ev.self_device_time_total
-            for k in kernels:
-                if k in ev.key:
-                    events[k] += ev.count
+        busy_ms, events = trace_busy(prof, kernels)
         seen.append(events)
         if events == launched:
-            return (busy_us / 1e3 if busy_us else None), wall, launched, seen
+            return busy_ms, wall, launched, seen
     raise RuntimeError(f"{tries} profiler traces recorded {seen} kernel "
                        f"events where the wrappers counted the launches "
                        f"{launched}")
+
+
+def trace_busy(prof, kernels) -> tuple:
+    """A finished profiler trace -> (summed device time of every kernel
+    and copy in it, in ms, or None when it shows none; {kernel: the
+    events it recorded of each of `kernels`})."""
+    events = dict.fromkeys(kernels, 0)
+    busy_us = 0.0
+    for ev in prof.key_averages():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            busy_us += ev.self_device_time_total
+        for k in kernels:
+            if k in ev.key:
+                events[k] += ev.count
+    return (busy_us / 1e3 if busy_us else None), events
 
 
 def idle_fields(busy_ms, wall, launched, seen) -> dict:
@@ -987,31 +1028,40 @@ class Stopwatch:
     """Adds up the seconds spent in obj.<name> (a module's function, an
     instance's method, or a class's method for every instance) while it
     is entered, by wrapping the attribute; `each` keeps every call's
-    seconds and, given note, `notes` note(result) of every call."""
+    seconds and, given note, `notes` note(result) of every call. `cpu`
+    adds up the calling threads' CPU seconds in it (time.thread_time):
+    where threads share the interpreter, the wall also holds the time a
+    call waited for the others. Calls from several threads add up under
+    a lock."""
 
     def __init__(self, obj, name, note=None):
         self.obj, self.name, self.note = obj, name, note
+        self.lock = threading.Lock()
         self.reset()
 
     def reset(self):
         self.seconds, self.calls, self.each, self.notes = 0.0, 0, [], []
+        self.cpu = 0.0
 
     def __enter__(self):
         self.orig = orig = getattr(self.obj, self.name)
 
         def timed(*args, **kw):
-            t0 = time.perf_counter()
+            t0, c0 = time.perf_counter(), time.thread_time()
             out = None
             try:
                 out = orig(*args, **kw)
                 return out
             finally:
                 dt = time.perf_counter() - t0
-                self.seconds += dt
-                self.calls += 1
-                self.each.append(dt)
-                if self.note is not None:
-                    self.notes.append(self.note(out))
+                dc = time.thread_time() - c0
+                with self.lock:
+                    self.seconds += dt
+                    self.cpu += dc
+                    self.calls += 1
+                    self.each.append(dt)
+                    if self.note is not None:
+                        self.notes.append(self.note(out))
 
         setattr(self.obj, self.name, timed)
         return self
@@ -1295,9 +1345,7 @@ def phase_gangs(PK, VK, jobs):
 
     out = gang_flow("cuda", *GANG_SIZE, on_cycle=reset_counts)
     k1, k1_shapes = PK.LAUNCHES, shapes(PK.LAUNCHES_BY_SHAPE)
-    k6 = VK.LAUNCHES
-    k6_shapes = [{"N": N, "C": C, "launches": k}
-                 for (N, C), k in sorted(VK.LAUNCHES_BY_SHAPE.items())]
+    k6, k6_shapes = VK.LAUNCHES, k6_shapes_of(VK)
     if k1 <= 0 or k6 <= 0:
         raise AssertionError(f"the gang path launched K1 {k1}, K6 {k6} times")
     placed = check_gangs(out, GANG_SIZE)
@@ -1476,7 +1524,8 @@ def phase_daemon_gangs(PK, VK, jobs):
     (jobs["daemon_gang_cpu"]): equal binds, errors, statuses, victims and
     cycles; the short gang parked, no gang partly bound, the big gang
     bound whole after its victims, none of them at priority 10 or above;
-    K1 and K6 launched. -> (K1 launches, K6 launches)."""
+    K1 and K6 launched. -> (K1 launches, K1 shapes, K6 launches, K6
+    shapes)."""
     def reset_counts():
         reset(PK, VK)
         torch.cuda.synchronize()
@@ -1484,6 +1533,8 @@ def phase_daemon_gangs(PK, VK, jobs):
     out = daemon_gang_flow("cuda", DAEMON_GANG_SIZE, DAEMON_GANG_RETRIES,
                            on_start=reset_counts)
     k1, k6 = PK.LAUNCHES, VK.LAUNCHES
+    k1_shapes = shapes(PK.LAUNCHES_BY_SHAPE)
+    k6_shapes = k6_shapes_of(VK)
     if k1 <= 0 or k6 <= 0:
         raise AssertionError(f"the daemon's gang flow launched K1 {k1}, K6 "
                              f"{k6} times")
@@ -1514,8 +1565,346 @@ def phase_daemon_gangs(PK, VK, jobs):
          victims=len(out["victims"]), errors=len(out["errors"]),
          wall_s=out["wall_s"],
          cpu_worker_wall_s=cpu_s, cpu_wall_s=cpu["wall_s"],
-         k1_launches=k1, k6_launches=k6, equal_to_cpu=True)
-    return k1, k6
+         k1_launches=k1, k1_launches_by_shape=k1_shapes, k6_launches=k6,
+         k6_launches_by_shape=k6_shapes, equal_to_cpu=True)
+    return k1, k1_shapes, k6, k6_shapes
+
+
+# -- phase 10: the scheduler daemon on the wire --------------------------------
+
+
+class TraceShort(Exception):
+    """A profiler trace that recorded fewer kernel events than the
+    wrappers counted launches (device_busy_ms's rule)."""
+
+
+def record_binds(sched, hosts: list) -> None:
+    """Append the host of every pod the daemon's loop binds to `hosts`,
+    in the order the loop binds them (Scheduler._assume_and_bind_wave,
+    called on the loop's thread, wave by wave)."""
+    loop = sched.scheduler
+    orig = loop._assume_and_bind_wave
+
+    def recorded(pairs, cycle_start):
+        hosts.extend(h for _, h in pairs)
+        return orig(pairs, cycle_start)
+
+    loop._assume_and_bind_wave = recorded
+
+
+def bound_per_node(pods) -> dict:
+    """-> {node: pods bound there} of a pod list read from the
+    apiserver."""
+    out = {}
+    for p in pods:
+        if p.spec.node_name:
+            out[p.spec.node_name] = out.get(p.spec.node_name, 0) + 1
+    return out
+
+
+def one_shot_hosts(TorchScheduleAlgorithm, ClusterState, nodes, template,
+                   n_pods) -> tuple:
+    """The port's one-shot schedule_backlog on the card over `nodes` and
+    n_pods copies of `template` (a pod read back from the apiserver,
+    unbound and renamed). -> (hosts, seconds)."""
+    from kubernetes_tpu_torch.api.types import shallow_copy
+
+    pods = []
+    for i in range(n_pods):
+        q = shallow_copy(template)
+        q.metadata = shallow_copy(template.metadata)
+        q.metadata.name = f"one-shot-{i:06d}"
+        q.spec = shallow_copy(template.spec)
+        q.spec.node_name = ""
+        pods.append(q)
+    t0 = time.perf_counter()
+    hosts = TorchScheduleAlgorithm(device="cuda").schedule_backlog(
+        pods, ClusterState.build(nodes))
+    torch.cuda.synchronize()
+    return hosts, time.perf_counter() - t0
+
+
+def first_difference(got, want) -> str:
+    i = next((i for i, (a, b) in enumerate(zip(got, want)) if a != b),
+             min(len(got), len(want)))
+    return (f"{len(got)} and {len(want)} hosts; the first difference at "
+            f"{i}: {got[i:i + 1]} against {want[i:i + 1]}")
+
+
+def nearest_rank(xs, q) -> float:
+    """The q-quantile of xs by the nearest-rank rule."""
+    xs = sorted(xs)
+    return xs[max(0, math.ceil(q * len(xs)) - 1)]
+
+
+def hist_quantiles(hist, before, qs) -> dict:
+    """Quantiles of the observations a Histogram took since its
+    bucket_counts() were `before`, as bucket upper bounds (its own
+    percentile rule) -> {"count", "p50", ...} in the histogram's unit."""
+    counts = [a - b for a, b in zip(hist.bucket_counts(), before)]
+    total = sum(counts)
+    out = {"count": total}
+    for q in qs:
+        cum, val = 0, float("inf")
+        for bound, c in zip(list(hist.buckets) + [float("inf")], counts):
+            cum += c
+            if total and cum >= q * total:
+                val = bound
+                break
+        out[f"p{round(q * 100)}"] = val
+    return out
+
+
+def single_pod_latency(sched, client, creator, n) -> tuple:
+    """10c: n pods of the density template created one at a time into the
+    idle daemon, each waiting for its bind. -> (seconds from the create
+    request to the return of the pod's bind request, per pod)."""
+    cfg = sched.scheduler.config
+    done, cv = {}, threading.Condition()
+    orig = cfg.binder
+
+    def binder(pod, host):
+        orig(pod, host)
+        with cv:
+            done[pod.metadata.name] = time.perf_counter()
+            cv.notify_all()
+
+    cfg.binder = binder
+    lat = []
+    try:
+        for i in range(n):
+            p = creator._perf_pod()
+            p.metadata.generate_name = ""
+            p.metadata.name = f"latency-{i:03d}"
+            t0 = time.perf_counter()
+            client.pods().create(p)
+            with cv:
+                if not cv.wait_for(lambda: p.metadata.name in done, 60):
+                    raise AssertionError(f"single-pod latency: "
+                                         f"{p.metadata.name} not bound in "
+                                         f"60 s")
+            lat.append(done[p.metadata.name] - t0)
+    finally:
+        cfg.binder = orig
+    return lat
+
+
+def phase_wire(PK, ZK, ClusterState, TorchScheduleAlgorithm):
+    """10a: harness/perf.schedule_pods(5000, 50000, "CUDAProvider") on the
+    card: the port's apiserver, LocalTransport, informers and
+    SchedulerServer. Every pod bound as read back from the apiserver, 10
+    a node, the hosts in the order the loop bound them equal to the
+    one-shot call's over the apiserver's nodes and as many copies of its
+    pod, every wave from wave_view, K1 launched; the idle share from a
+    CUDA trace over the creation -> all-bound window, kept only when its
+    K1 events equal the launches counted (the run is made again when not,
+    up to WIRE_TRACE_TRIES runs). 10c, in the same daemon left idle:
+    WIRE_LATENCY_PODS pods one at a time, their picks equal to the last
+    of the one-shot call over all 50,200; a wave of one pod takes the
+    serial scan (torch ops; no hand kernel yet, ROADMAP queue 2 K2), so
+    its K1 launches are printed, not required. -> (10a's K1 launches,
+    shapes)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from kubernetes_tpu_torch.harness import creator, perf
+    from kubernetes_tpu_torch.metrics import scheduler_e2e_latency
+    from kubernetes_tpu_torch.scheduler import algorithm, core, factory
+    from kubernetes_tpu_torch.snapshot.incremental import IncrementalEncoder
+
+    n_nodes, n_pods = WIRE_SIZE
+    kernels = counted_kernels(PK, ZK)
+    seen = []
+    for _ in range(WIRE_TRACE_TRIES):
+        rec = {"hosts": []}
+        view = Stopwatch(IncrementalEncoder, "wave_view",
+                         note=lambda out: out is not None
+                         and out[0] is not None)
+        # where the window's time goes, each in wall and thread-CPU
+        # seconds: the algorithm (wave_view included), the loop's assume,
+        # the wave's batch bind (the in-process apiserver's commit
+        # included), the informer's confirmations into the cache
+        parts = {"algorithm": Stopwatch(algorithm.TorchScheduleAlgorithm,
+                                        "schedule_backlog"),
+                 "assume_and_submit_bind": Stopwatch(
+                     core.Scheduler, "_assume_and_bind_wave"),
+                 "bind_batches": Stopwatch(factory.ConfigFactory,
+                                           "_bind_many"),
+                 "informer_confirms": Stopwatch(factory.ConfigFactory,
+                                                "_cache_add_pod")}
+
+        def on_ready(sched, client):
+            record_binds(sched, rec["hosts"])
+            view.reset()
+            for sw in parts.values():
+                sw.reset()
+            reset(PK, ZK)
+            torch.cuda.synchronize()
+            rec["prof"] = profile(activities=[ProfilerActivity.CUDA])
+            rec["prof"].__enter__()
+            rec["t0"] = time.perf_counter()
+
+        def after(sched, client):
+            torch.cuda.synchronize()
+            rec["wall"] = time.perf_counter() - rec["t0"]
+            rec["prof"].__exit__(None, None, None)
+            launched = {k: m.LAUNCHES for k, m in kernels.items()}
+            rec["k1"], rec["k1_shapes"] = (PK.LAUNCHES,
+                                           shapes(PK.LAUNCHES_BY_SHAPE))
+            rec["busy_ms"], events = trace_busy(rec["prof"], kernels)
+            seen.append(events)
+            if events != launched:
+                raise TraceShort(f"{events} against {launched}")
+            rec["launched"] = launched
+            rec["waves"] = len(view.notes)
+            rec["incremental"] = list(view.notes)
+            rec["parts"] = {k: {"wall_s": sw.seconds, "cpu_s": sw.cpu,
+                                "calls": sw.calls}
+                            for k, sw in [("wave_view", view),
+                                          *parts.items()]}
+            pods = client.pods().list()[0]
+            rec["bound"] = sum(bool(p.spec.node_name) for p in pods)
+            rec["per_node"] = bound_per_node(pods)
+            one, rec["one_shot_s"] = one_shot_hosts(
+                TorchScheduleAlgorithm, ClusterState,
+                client.nodes().list()[0], pods[0],
+                n_pods + WIRE_LATENCY_PODS)
+            rec["one_shot"] = one
+            # 10c: the daemon idle with every pod bound
+            hist_before = scheduler_e2e_latency.bucket_counts()
+            reset(PK, ZK)
+            view.reset()
+            torch.cuda.synchronize()
+            rec["latency"] = single_pod_latency(sched, client, creator,
+                                                WIRE_LATENCY_PODS)
+            rec["lat_k1"], rec["lat_k1_shapes"] = (
+                PK.LAUNCHES, shapes(PK.LAUNCHES_BY_SHAPE))
+            rec["lat_incremental"] = list(view.notes)
+            rec["e2e_us"] = hist_quantiles(scheduler_e2e_latency,
+                                           hist_before, (0.5, 0.99, 1.0))
+
+        out = io.StringIO()
+        try:
+            with view, parts["algorithm"], parts["assume_and_submit_bind"], \
+                    parts["bind_batches"], parts["informer_confirms"]:
+                stats = perf.schedule_pods(
+                    n_nodes, n_pods, "CUDAProvider", out=out, device="cuda",
+                    on_ready=on_ready, after=after)
+        except TraceShort:
+            continue
+        break
+    else:
+        raise RuntimeError(f"{WIRE_TRACE_TRIES} runs' traces recorded {seen} "
+                           f"kernel events, fewer than the launches")
+    hosts, one = rec["hosts"], rec["one_shot"]
+    if rec["bound"] != n_pods or len(hosts) < n_pods:
+        raise AssertionError(f"wire: {rec['bound']} of {n_pods} pods bound")
+    if len(rec["per_node"]) != n_nodes or set(
+            rec["per_node"].values()) != {n_pods // n_nodes}:
+        raise AssertionError("wire: not 10 pods on every node")
+    if hosts[:n_pods] != one[:n_pods]:
+        raise AssertionError("wire: the loop's hosts differ from the one-shot "
+                             "call's: " + first_difference(hosts[:n_pods],
+                                                           one[:n_pods]))
+    if not rec["incremental"] or not all(rec["incremental"]):
+        raise AssertionError(f"wire: a wave took the full encode: "
+                             f"{rec['incremental']}")
+    if rec["k1"] <= 0:
+        raise AssertionError("wire: the daemon never launched K1")
+    picks = hosts[n_pods:]
+    if picks != one[n_pods:]:
+        raise AssertionError("single pods: the picks differ from the "
+                             "one-shot call's last: "
+                             + first_difference(picks, one[n_pods:]))
+    if not all(rec["lat_incremental"]):
+        raise AssertionError("single pods: a wave took the full encode")
+    lines = out.getvalue().splitlines()
+    busy, wall = rec["busy_ms"], rec["wall"]
+    emit("wire", nodes=n_nodes, pods=n_pods,
+         pods_per_s=stats["pods_per_sec"],
+         sustained_pods_per_s=stats["sustained_pods_per_sec"],
+         creation_s=stats["creation_seconds"],
+         pipeline_s=stats["pipeline_seconds"], waves=rec["waves"],
+         parts=rec["parts"], one_shot_s=rec["one_shot_s"],
+         traced_wall_s=wall, device_busy_ms=busy,
+         device_idle_share=(None if busy is None
+                            else 1.0 - busy / 1e3 / wall),
+         traced_launches=rec["launched"], trace_kernel_events=seen,
+         k1_launches=rec["k1"], k1_launches_by_shape=rec["k1_shapes"],
+         harness=[ln for ln in lines if not ln[:2].isdigit()],
+         all_bound=True, equal_to_one_shot=True, incremental=True)
+    lat = rec["latency"]
+    emit("wire_latency", pods=WIRE_LATENCY_PODS, bound_before=n_pods,
+         p50_s=nearest_rank(lat, 0.5), p99_s=nearest_rank(lat, 0.99),
+         max_s=max(lat), mean_s=sum(lat) / len(lat),
+         e2e_histogram_us=rec["e2e_us"], k1_launches=rec["lat_k1"],
+         k1_launches_by_shape=rec["lat_k1_shapes"],
+         equal_to_one_shot=True)
+    return rec["k1"], rec["k1_shapes"]
+
+
+def phase_wire_separate(PK, ZK, ClusterState, TorchScheduleAlgorithm):
+    """10b: harness/perf.schedule_pods_separate(1000, 30000,
+    "CUDAProvider"): the port's apiserver in its own interpreter over the
+    binary wire, the pod creator in another, the daemon on the card in
+    this one. Every pod bound, the hosts in the loop's order (and so the
+    per-node counts) equal to the one-shot call's over the apiserver's
+    nodes; the rates and the apiserver's counters. -> (K1 launches,
+    shapes)."""
+    from kubernetes_tpu_torch.harness import perf
+
+    n_nodes, n_pods = WIRE_SEPARATE_SIZE
+    rec = {"hosts": []}
+
+    def on_ready(sched, client):
+        record_binds(sched, rec["hosts"])
+        reset(PK, ZK)
+        torch.cuda.synchronize()
+
+    def after(sched, client):
+        torch.cuda.synchronize()
+        rec["k1"], rec["k1_shapes"] = PK.LAUNCHES, shapes(
+            PK.LAUNCHES_BY_SHAPE)
+        pods = client.pods().list()[0]
+        rec["bound"] = sum(bool(p.spec.node_name) for p in pods)
+        rec["per_node"] = bound_per_node(pods)
+        rec["one_shot"], rec["one_shot_s"] = one_shot_hosts(
+            TorchScheduleAlgorithm, ClusterState, client.nodes().list()[0],
+            pods[0], n_pods)
+
+    out = io.StringIO()
+    stats = perf.schedule_pods_separate(n_nodes, n_pods, "CUDAProvider",
+                                        out=out, device="cuda",
+                                        on_ready=on_ready, after=after)
+    if rec["bound"] != n_pods:
+        raise AssertionError(f"wire across processes: {rec['bound']} of "
+                             f"{n_pods} bound")
+    one = rec["one_shot"]
+    want = {}
+    for h in one:
+        want[h] = want.get(h, 0) + 1
+    if rec["per_node"] != want:
+        raise AssertionError("wire across processes: the per-node counts "
+                             "differ from the one-shot call's")
+    if rec["hosts"] != one:
+        raise AssertionError("wire across processes: the loop's hosts "
+                             "differ from the one-shot call's: "
+                             + first_difference(rec["hosts"], one))
+    if rec["k1"] <= 0:
+        raise AssertionError("wire across processes never launched K1")
+    lines = out.getvalue().splitlines()
+    emit("wire_separate", nodes=n_nodes, pods=n_pods, **stats,
+         one_shot_s=rec["one_shot_s"], k1_launches=rec["k1"],
+         k1_launches_by_shape=rec["k1_shapes"],
+         harness=[ln for ln in lines if not ln[:2].isdigit()],
+         all_bound=True, equal_to_one_shot=True)
+    return rec["k1"], rec["k1_shapes"]
+
+
+def k6_shapes_of(VK) -> list:
+    """K6's {(N, C): launches} -> [{"N", "C", "launches"}, ...] in
+    order."""
+    return [{"N": N, "C": C, "launches": k}
+            for (N, C), k in sorted(VK.LAUNCHES_BY_SHAPE.items())]
 
 
 def shapes(by_shape: dict) -> list:
@@ -1628,7 +2017,12 @@ def run(args, jobs) -> int:
         PK, VK, jobs)
     daemon_k1, daemon_k1_shapes = phase_daemon(
         PK, ZK, T, S, TorchScheduleAlgorithm, density_names, density_wall)
-    daemon_gang_k1, daemon_gang_k6 = phase_daemon_gangs(PK, VK, jobs)
+    daemon_gang_k1, daemon_gang_k1_shapes, daemon_gang_k6, \
+        daemon_gang_k6_shapes = phase_daemon_gangs(PK, VK, jobs)
+    wire_k1, wire_k1_shapes = phase_wire(PK, ZK, ClusterState,
+                                         TorchScheduleAlgorithm)
+    separate_k1, separate_k1_shapes = phase_wire_separate(
+        PK, ZK, ClusterState, TorchScheduleAlgorithm)
 
     # the density path probes J=128 over the 5,000 nodes padded to 8,192;
     # the zoned density path runs one 50,000-pick run in a 65,536 bucket
@@ -1649,7 +2043,9 @@ def run(args, jobs) -> int:
                              **{f"policy_{k}": v[0]
                                 for k, v in policy.items()},
                              "gangs": gang_k1, "daemon": daemon_k1,
-                             "daemon_gangs": daemon_gang_k1},
+                             "daemon_gangs": daemon_gang_k1,
+                             "wire": wire_k1,
+                             "wire_separate": separate_k1},
         "launches_by_shape": {"density": density_shapes,
                               "zoned_density": z_k1_shapes,
                               "many_templates": tpl_k1_shapes,
@@ -1657,7 +2053,10 @@ def run(args, jobs) -> int:
                               **{f"policy_{k}": v[1]
                                  for k, v in policy.items()},
                               "gangs": gang_k1_shapes,
-                              "daemon": daemon_k1_shapes},
+                              "daemon": daemon_k1_shapes,
+                              "daemon_gangs": daemon_gang_k1_shapes,
+                              "wire": wire_k1_shapes,
+                              "wire_separate": separate_k1_shapes},
         "max_abs_err": max_err,
         "matches_plain": True,
         "ms": k1["ms"],
@@ -1702,7 +2101,8 @@ def run(args, jobs) -> int:
         "launches": gang_k6,
         "launches_by_path": {"gangs": gang_k6,
                              "daemon_gangs": daemon_gang_k6},
-        "launches_by_shape": {"gangs": gang_k6_shapes},
+        "launches_by_shape": {"gangs": gang_k6_shapes,
+                              "daemon_gangs": daemon_gang_k6_shapes},
         "max_abs_err": k6_err,
         "matches_plain": True,
         "ms": k6["ms"],

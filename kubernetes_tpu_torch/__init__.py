@@ -27,8 +27,9 @@ Layout:
                             the scheduler cache and the scheduleOne
                             loop), the provider registry (plugins,
                             copied; algorithmprovider), Policy files
-                            (policy, copied), their resolution to an
-                            algorithm (factory), the outbound extender
+                            (policy, copied), the watch wiring and
+                            their resolution to an algorithm
+                            (factory), the outbound extender
                             (extender, copied), the inbound
                             scheduler-extender service (extender_server)
                             and the gang director with priority
@@ -42,11 +43,25 @@ Layout:
                             phase-timer layer the core calls (copied;
                             analysis/__init__.py and trace/profile.py
                             keep what the port can run)
-  runtime/                  the API objects' JSON codec (copied)
+  runtime/                  the API objects' JSON and TLV binary codecs
+                            (copied; native/_ktlv.c is the TLV codec's C
+                            fast path)
+  apiserver/, storage/,     the control plane (copied): the apiserver and
+  auth/, audit/, apis/,     its stores, authn/authz, audit, component
+  telemetry/                config, continuous telemetry
+  client/                   the client stack (copied): RESTClient, the
+                            local and HTTP transports, reflectors,
+                            informers, the FIFO, events, leader election
+  scheduler/server.py       SchedulerServer: the daemon that watches an
+                            apiserver (ConfigFactory's informers) and
+                            schedules on the card
   hyperkube.py              `python -m kubernetes_tpu_torch.hyperkube
-                            extender`
+                            apiserver | scheduler | extender`
   harness/scenarios.py      cluster and backlog builders shared by the
                             tests and chip_smoke.py
+  harness/perf.py           scheduler_perf through the control plane, in
+                            one process or across processes (creator.py
+                            is the pod-creator process)
 
 It imports torch and never jax, nor anything of kubernetes_tpu.
 Integer tables live on the device as int64 (uint32 bitsets widened),

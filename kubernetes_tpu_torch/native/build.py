@@ -13,6 +13,13 @@ builds it anew.
   engine that models/replay.py loads with ctypes. None when no C
   compiler is present: models/replay then runs its spec replay, as the
   JAX package does.
+- ensure_kquantity(), ensure_ktlv(): the CPython extensions of
+  native/_kquantity.c (the quantity parser's fast path, api/resource.py)
+  and native/_ktlv.c (the TLV wire codec's, runtime/tlv.py), built with
+  the interpreter's headers and loaded as kubernetes_tpu_torch.native.
+  _kquantity and ._ktlv. A library's name carries a hash of its source
+  and of the interpreter. None when they cannot be built or loaded:
+  their callers run the pure-Python codecs, as in the JAX package.
 - build_cuda(stem): `nvcc` of csrc/<stem>.cu for sm_90a into a shared
   library with a plain C interface. Raises when nvcc is missing or the
   build fails: a CUDA kernel has no fallback. build_cuda_file(src, name)
@@ -25,11 +32,14 @@ builds it anew.
 from __future__ import annotations
 
 import hashlib
+import importlib.machinery
+import importlib.util
 import os
 import re
 import shutil
 import subprocess
 import sys
+import sysconfig
 import tempfile
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -91,6 +101,54 @@ def ensure_replay() -> str | None:
         _warn_once("cc-fail", f"building _replay.so failed:\n{proc.stderr}")
         return None
     return out
+
+
+def _ensure_ext(stem: str) -> str | None:
+    """Build native/<stem>.c as a CPython extension (unless this exact
+    build exists) and load it as kubernetes_tpu_torch.native.<stem>. ->
+    its path, or None when it cannot be built or loaded."""
+    name = f"kubernetes_tpu_torch.native.{stem}"
+    mod = sys.modules.get(name)
+    if mod is not None:
+        return mod.__file__
+    inc = sysconfig.get_paths().get("include")
+    cc = _c_compiler()
+    if not inc or not os.path.exists(os.path.join(inc, "Python.h")) \
+            or cc is None:
+        return None
+    src = os.path.join(_PKG_DIR, "native", f"{stem}.c")
+    suffix = sysconfig.get_config_var("EXT_SUFFIX") or ".so"
+    with open(src, "rb") as f:
+        key = hashlib.sha256(f.read() + sys.version.encode()
+                             + suffix.encode() + inc.encode())
+    out = os.path.join(BUILD_DIR, f"{stem}-{key.hexdigest()[:16]}{suffix}")
+    if not os.path.exists(out):
+        proc = _compile([cc, "-O2", "-fPIC", "-Wall", "-shared", f"-I{inc}"],
+                        src, out)
+        if proc.returncode != 0:
+            _warn_once(f"cc-fail-{stem}",
+                       f"building {stem} failed:\n{proc.stderr}")
+            return None
+    try:
+        loader = importlib.machinery.ExtensionFileLoader(name, out)
+        spec = importlib.util.spec_from_file_location(name, out,
+                                                      loader=loader)
+        mod = importlib.util.module_from_spec(spec)
+        loader.exec_module(mod)
+    except Exception as exc:
+        _warn_once(f"load-{stem}", f"loading {out} raised {exc!r}")
+        return None
+    sys.modules[name] = mod
+    setattr(sys.modules["kubernetes_tpu_torch.native"], stem, mod)
+    return out
+
+
+def ensure_kquantity() -> str | None:
+    return _ensure_ext("_kquantity")
+
+
+def ensure_ktlv() -> str | None:
+    return _ensure_ext("_ktlv")
 
 
 def _nvcc_path() -> str:

@@ -160,19 +160,29 @@ CUDA_PROVIDER_NAME = "CUDAProvider"
 
 def _tpu_algorithm_factory(factory_args, device="cuda"):
     """Build the port's batched ScheduleAlgorithm on `device` (the card
-    unless the caller asks for the CPU).
+    unless the caller asks for the CPU). The daemon wires the scheduler
+    cache so waves run off the incrementally-maintained snapshot; with
+    default factory arguments (no cache) every wave encodes its
+    snapshot from scratch.
 
     Deviation from kubernetes_tpu/scheduler/algorithmprovider.py
-    _tpu_algorithm_factory: it returns TorchScheduleAlgorithm with no
-    mesh, no scheduler cache and no listers, since the port has neither
-    the multi-device driver (parallel/mesh.py) nor the daemon's
-    incremental encoder yet; factory_args is accepted for the registry's
-    signature."""
+    _tpu_algorithm_factory: it takes the torch `device` of the
+    algorithm, and it builds no mesh, since the port has no
+    multi-device driver yet (parallel/mesh.py, ROADMAP.md queue 1 item
+    5); it always returns TorchScheduleAlgorithm with the factory
+    arguments' scheduler cache and listers, as the JAX factory does off
+    the mesh."""
     from kubernetes_tpu_torch.scheduler.algorithm import (
         TorchScheduleAlgorithm,
     )
 
-    return TorchScheduleAlgorithm(device=device)
+    return TorchScheduleAlgorithm(
+        device=device,
+        cache=factory_args.scheduler_cache,
+        service_lister=factory_args.service_lister,
+        controller_lister=factory_args.controller_lister,
+        replica_set_lister=factory_args.replica_set_lister,
+    )
 
 
 def _register_cuda() -> None:

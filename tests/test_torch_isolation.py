@@ -23,6 +23,7 @@ COPIES = (
     "snapshot/__init__.py", "snapshot/encode.py", "snapshot/interpod.py",
     "snapshot/volumes.py", "snapshot/services.py", "snapshot/pad.py",
     "models/replay.py", "models/hosttab.py", "native/replay.c",
+    "native/_kquantity.c", "native/_ktlv.c",
     "scheduler/plugins.py", "scheduler/policy.py", "runtime/__init__.py",
     "runtime/scheme.py", "metrics/__init__.py", "metrics/metrics.py",
     "utils/__init__.py", "utils/clock.py", "utils/entropy.py",
@@ -30,6 +31,31 @@ COPIES = (
     "analysis/locks.py", "analysis/races.py", "trace/__init__.py",
     "trace/spans.py", "scheduler/cache.py", "scheduler/core.py",
     "scheduler/extender.py", "snapshot/incremental.py",
+    # the control plane: wire codecs, storage, auth, audit, component
+    # config, observability, the apiserver, the client stack, the pod
+    # creator of the scheduler_perf harness
+    "runtime/binary.py", "runtime/tlv.py", "runtime/versioning.py",
+    "storage/__init__.py", "storage/store.py", "storage/cacher.py",
+    "storage/durable.py", "storage/replicated.py",
+    "storage/quorum/__init__.py", "storage/quorum/io.py",
+    "storage/quorum/log.py", "storage/quorum/node.py",
+    "storage/quorum/rpc.py", "storage/quorum/store.py",
+    "auth/__init__.py", "auth/authn.py", "auth/authz.py", "auth/rbac.py",
+    "audit/__init__.py", "audit/audit.py",
+    "apis/__init__.py", "apis/componentconfig.py",
+    "utils/configz.py", "utils/pprof.py", "trace/httpd.py", "trace/slo.py",
+    "telemetry/__init__.py", "telemetry/expo.py", "telemetry/flight.py",
+    "telemetry/scrape.py", "telemetry/slo.py", "telemetry/tsdb.py",
+    "apiserver/__init__.py", "apiserver/admission.py",
+    "apiserver/fields.py", "apiserver/flowcontrol.py",
+    "apiserver/http_frontend.py", "apiserver/registry.py",
+    "apiserver/server.py", "apiserver/thirdparty.py", "apiserver/ui.py",
+    "client/__init__.py", "client/cache/__init__.py",
+    "client/cache/fifo.py", "client/cache/listers.py",
+    "client/cache/reflector.py", "client/cache/store.py",
+    "client/informer.py", "client/leaderelection.py", "client/record.py",
+    "client/rest.py", "client/transport.py",
+    "harness/creator.py", "harness/faults.py",
 )
 #: functions the port's own modules keep verbatim from their counterparts
 FUNCTION_COPIES = {
@@ -47,7 +73,28 @@ FUNCTION_COPIES = {
     "scheduler/algorithmprovider.py": (
         "DEFAULT_PROVIDER_NAME", "TPU_PROVIDER_NAME",
         "CANONICAL_PREDICATE_ORDER", "_max_pd_vols", "_register_all"),
-    "scheduler/factory.py": ("node_schedulable",),
+    "scheduler/factory.py": (
+        "node_schedulable", "SCHEDULER_ANNOTATION_KEY",
+        "DEFAULT_SCHEDULER_NAME", "_ResponsibleFIFO",
+        "ConfigFactory._cache_add_pod", "ConfigFactory._cache_update_pod",
+        "ConfigFactory._cache_delete_pod", "ConfigFactory.run_components",
+        "ConfigFactory.stop", "ConfigFactory.plugin_args",
+        "ConfigFactory.create_from_provider", "ConfigFactory.create_scheduler",
+        "ConfigFactory._snapshot_extras", "ConfigFactory._next_pod",
+        "ConfigFactory._drain_waiting", "ConfigFactory._bind",
+        "ConfigFactory._bind_many", "ConfigFactory._update_pod_conditions_many",
+        "ConfigFactory._update_podgroup_status", "ConfigFactory._preempt_many",
+        "ConfigFactory._update_pod_condition",
+        "ConfigFactory._make_error_handler"),
+    "scheduler/server.py": (
+        "SchedulerServerOptions.from_component_config",
+        "SchedulerServerOptions.from_config_file", "SchedulerServer.__init__",
+        "SchedulerServer._lost_lease", "SchedulerServer.is_leader",
+        "SchedulerServer.stop"),
+    "harness/perf.py": ("_pipeline_snapshot", "_phase_table", "_measure",
+                        "_scrape_counters"),
+    "hyperkube.py": ("_client", "_client_from", "_wait_forever",
+                     "run_apiserver"),
     "analysis/__init__.py": ("Finding", "render_report"),
     "trace/profile.py": ("PHASES", "_ExclusiveAccountant", "_ACCOUNTANT",
                          "_PhaseTimer", "_NullTimer", "_NULL", "_HIST",
@@ -59,7 +106,10 @@ FUNCTION_COPIES = {
 #: rows against the JAX package's packed buffer; tests/test_torch_policy.py
 #: the device providers the factory registers; tests/test_torch_gang.py the
 #: director on the CPU against the JAX package's; tests/test_torch_daemon.py
-#: the warmup that raises where the JAX package's logs). A name "Class.
+#: the warmup that raises where the JAX package's logs; tests/
+#: test_torch_server.py the daemon on the CPU, the harness, the daemon that
+#: raises on a missing card or a failed kernel build; tests/
+#: test_torch_wire.py the daemon against the JAX package's). A name "Class.
 #: method" is a method of a top-level class.
 DEVIATIONS = {
     ("models/wave.py", "group_buffer"): "models/pack.py",
@@ -69,6 +119,18 @@ DEVIATIONS = {
     ("trace/profile.py", "install_compile_listener"): "chip_smoke.py",
     ("scheduler/algorithm.py", "TorchScheduleAlgorithm._warm_one"):
         "an exception propagates",
+    ("scheduler/factory.py", "ConfigFactory.__init__"): "device",
+    ("scheduler/factory.py", "ConfigFactory.create_from_config"):
+        "TorchScheduleAlgorithm",
+    ("scheduler/factory.py", "ConfigFactory.create_from_keys"): "device",
+    ("scheduler/factory.py", "ConfigFactory._make_config"): "GangDirector",
+    ("scheduler/server.py", "SchedulerServerOptions"): "device",
+    ("scheduler/server.py", "SchedulerServer.start"): "raises",
+    ("harness/perf.py", "_wait_sched_ready"): "raises",
+    ("harness/perf.py", "schedule_pods"): "device",
+    ("harness/perf.py", "schedule_pods_separate"):
+        "KUBERNETES_TPU_WARM_SCAN",
+    ("hyperkube.py", "run_scheduler"): "--device",
 }
 #: the JAX counterpart of a deviation whose file or name differs there
 COUNTERPARTS = {
@@ -116,6 +178,14 @@ def test_import_leaves_jax_unloaded():
         "import kubernetes_tpu_torch.utils\n"
         "import kubernetes_tpu_torch.analysis.races\n"
         "import kubernetes_tpu_torch.trace.profile\n"
+        "import kubernetes_tpu_torch.scheduler.server\n"
+        "import kubernetes_tpu_torch.apiserver.server\n"
+        "import kubernetes_tpu_torch.client\n"
+        "import kubernetes_tpu_torch.client.transport\n"
+        "import kubernetes_tpu_torch.harness.perf\n"
+        "import kubernetes_tpu_torch.harness.creator\n"
+        "import kubernetes_tpu_torch.storage.quorum\n"
+        "import kubernetes_tpu_torch.storage.replicated\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'kubernetes_tpu')]\n"
         "assert not bad, bad\n"
@@ -127,6 +197,73 @@ def test_import_leaves_jax_unloaded():
     assert proc.returncode == 0, proc.stderr
 
 
+def _port_module(name: str):
+    """The port's file of a dotted module name (the C source of a
+    CPython extension that native/build.py builds), or None."""
+    p = PORT.joinpath(*name.split(".")[1:])
+    if (p / "__init__.py").exists():
+        return p / "__init__.py"
+    for suffix in (".py", ".c"):
+        if p.with_suffix(suffix).exists():
+            return p.with_suffix(suffix)
+    return None
+
+
+def _top_level_names(path: pathlib.Path) -> set:
+    names = set()
+    for node in ast.parse(path.read_text()).body:
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef,
+                             ast.ClassDef)):
+            names.add(node.name)
+        elif isinstance(node, ast.Assign):
+            names.update(n.id for t in node.targets for n in ast.walk(t)
+                         if isinstance(n, ast.Name))
+        elif isinstance(node, (ast.AnnAssign, ast.AugAssign)):
+            if isinstance(node.target, ast.Name):
+                names.add(node.target.id)
+        elif isinstance(node, (ast.Import, ast.ImportFrom)):
+            names.update((a.asname or a.name).split(".")[0]
+                         for a in node.names)
+        elif isinstance(node, (ast.If, ast.Try)):
+            for sub in ast.walk(node):
+                if isinstance(sub, (ast.FunctionDef, ast.ClassDef)):
+                    names.add(sub.name)
+                elif isinstance(sub, ast.Assign):
+                    names.update(n.id for t in sub.targets
+                                 for n in ast.walk(t)
+                                 if isinstance(n, ast.Name))
+                elif isinstance(sub, (ast.Import, ast.ImportFrom)):
+                    names.update((a.asname or a.name).split(".")[0]
+                                 for a in sub.names)
+    return names
+
+
+@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_every_import_resolves_in_the_port(path):
+    """The closure walk: every import of the port's own package, lazy
+    ones inside functions included, names a module the port has, and
+    every name it takes from one is defined there (or is a submodule),
+    so no copy reaches for a module that was left behind."""
+    bad = []
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            bad += [a.name for a in node.names
+                    if a.name.split(".")[0] == "kubernetes_tpu_torch"
+                    and _port_module(a.name) is None]
+        elif (isinstance(node, ast.ImportFrom) and node.module
+              and node.module.split(".")[0] == "kubernetes_tpu_torch"):
+            mod = _port_module(node.module)
+            if mod is None or mod.suffix != ".py":
+                bad.append(node.module)
+                continue
+            have = _top_level_names(mod)
+            bad += [f"{node.module}.{a.name}" for a in node.names
+                    if a.name != "*" and a.name not in have
+                    and _port_module(f"{node.module}.{a.name}") is None]
+    assert not bad, f"{path} imports what the port lacks: {bad}"
+
+
 def _copy_note(rel: str) -> str:
     return f"Copy of kubernetes_tpu/{rel}: only the import package differs."
 
@@ -135,8 +272,8 @@ def _normalized_copy(rel: str) -> str:
     """The copy with its docstring note removed and its imports renamed
     back to the JAX package."""
     text = (PORT / rel).read_text()
-    if rel == "native/replay.c":
-        note = (" *\n * Copy of kubernetes_tpu/native/replay.c, unchanged; "
+    if rel.endswith(".c"):
+        note = (f" *\n * Copy of kubernetes_tpu/{rel}, unchanged; "
                 "native/build.py of\n * this package builds it.\n")
         assert note in text
         return text.replace(note, "", 1)

@@ -6,7 +6,9 @@ call on the CPU and the port's oracle copy; a gang director cycle with
 preemption on CUDA against the same cycle on the CPU; and the daemon's
 scheduling core (cache, incremental encoder, resident tables,
 core.Scheduler), with and without gangs, against the same flow on the
-CPU. Each test skips where there is no CUDA device.
+CPU; and the daemon on the wire (the port's apiserver, informers and
+SchedulerServer through harness/perf.schedule_pods) against the same run
+on the CPU. Each test skips where there is no CUDA device.
 
 This module imports only torch and the port, so it also runs on a
 machine without JAX:
@@ -327,3 +329,51 @@ def test_daemon_gang_flow_on_card_matches_cpu(cuda_device):
                                  retries=2)[0]
     assert got["victims"]
     assert all(got["binds"].get(f"big-{i:06d}") for i in range(6))
+
+
+def wire_run_on(device, n_nodes, n_pods):
+    """harness/perf.schedule_pods through the port's apiserver on
+    `device` -> (the hosts in the order the loop bound them, {node: pods}
+    read back from the apiserver, K1 launches while the pods bound)."""
+    import io
+
+    from kubernetes_tpu_torch.harness import perf
+
+    order, seen = [], {}
+
+    def on_ready(sched, client):
+        loop = sched.scheduler
+        orig = loop._assume_and_bind_wave
+
+        def recorded(pairs, cycle_start):
+            order.extend(h for _, h in pairs)
+            return orig(pairs, cycle_start)
+
+        loop._assume_and_bind_wave = recorded
+        seen["k1"] = PK.LAUNCHES
+
+    def after(sched, client):
+        seen["k1"] = PK.LAUNCHES - seen["k1"]
+        hosts = [p.spec.node_name for p in client.pods().list()[0]]
+        seen["per_node"] = {h: hosts.count(h) for h in set(hosts)}
+
+    perf.schedule_pods(n_nodes, n_pods, device=device, out=io.StringIO(),
+                       on_ready=on_ready, after=after)
+    return order, seen["per_node"], seen["k1"]
+
+
+def test_wire_daemon_on_card_matches_cpu(cuda_device):
+    """scheduler_perf through the port's control plane, in process, at a
+    small size: every pod bound, the hosts in the loop's order equal to
+    the same run on the CPU and to one schedule_backlog call, K1
+    launched."""
+    order, per_node, k1 = wire_run_on("cuda", 100, 1000)
+    assert k1 > 0
+    assert len(order) == 1000 and set(per_node.values()) == {10}
+    cpu_order, cpu_per_node, _ = wire_run_on("cpu", 100, 1000)
+    assert order == cpu_order and per_node == cpu_per_node
+    nodes = S.density_nodes(T, 100)
+    one = TorchScheduleAlgorithm(device="cuda").schedule_backlog(
+        S.pause_pods(T, 1000), ClusterState.build(nodes))
+    # harness nodes are named node-00000.., the scenario's node-0000..
+    assert [h.replace("node-", "node-0") for h in one] == order
