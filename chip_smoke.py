@@ -19,7 +19,14 @@ non-zero:
      reached, and the grid; with --baseline, also the probe kernel built
      from OLD.cu (a source with the same C interface, e.g. an earlier
      version of the kernel) against this checkout's, device times taken
-     in turns (old, new, new, old) on every case;
+     in turns (old, new, new, old) on every case; and K1's bf16 mode
+     (resource_probe(bf16=True), the KUBERNETES_TPU_QUANT=bf16 profile)
+     against its plain version, exact equality, on every PROBE_CASES
+     entry and every scenarios.BF16_TERM_LISTS entry (the default
+     weights, exact in bfloat16, and LR 30 + BA 1 and BA 7 + LR 40, whose
+     bound passes 256 so that bfloat16 rounds), with the cells that
+     round counted, and its profiler device time at (128, 8,192) beside
+     the int64 mode's, the byte bound and the share;
   3b. K3 vs plain: ops/zreplay_kernel.replay_picks against
      replay_picks_plain, exact equality of chosen, j and (L, n_done,
      bailed), on scenarios.ZREPLAY_CASES, with device times (CUDA events
@@ -122,9 +129,31 @@ non-zero:
      request to the bind's return, the port's
      scheduler_e2e_scheduling_latency quantiles over them, and the picks
      equal to the last 200 of the one-shot call over all 50,200 pods;
-  11. the kernels line, with the launch counts of each path it drove;
-     then nvidia-smi's line, then the result line
-     {"ok": true, "device": {...}}.
+  12. the kernel-path profiles: the JAX package's bench.py --raw-curve
+     backlog (scenarios.multi_template_backlog: 8 templates in runs of
+     512, each with a preferred anti-affinity to the next group and a
+     Service, so every run takes the per-run probe) at 5,000 nodes
+     (padded to 8,192) x 12,288 pods through TorchScheduleAlgorithm on
+     the card, in the arms wide_serial (KUBERNETES_TPU_QUANT=off),
+     quant_serial (int), wide_pipeline and quant_pipeline
+     (KUBERNETES_TPU_PIPELINE=1), bf16 (KUBERNETES_TPU_QUANT=bf16 with
+     KUBERNETES_TPU_QUANT_SHADOW=1: every wave shadow-checked at full
+     width) and bf16 under scenarios.POLICY_LR30 (LeastRequested at
+     weight 30, the bound past 256); each arm cold once and warm
+     PROFILE_WARM times: walls, host-to-device bytes (Packer), the cold
+     table bytes, the dispatches with their stage count, the probe's
+     overlap seconds (trace/profile.overlap_totals), K1's launches by
+     (J, N, mode) and the shadow gate's stats; the warm calls run in turns
+     across the arms, the order reversed each round. Names equal across the
+     four int64 arms, the default bf16 arm and the same call on the CPU
+     (wide_serial's, in a host_jobs worker); the LR 30 arm's names equal
+     a full-width call under the same Policy; the pipelined arms stage,
+     the quantized arms place narrower tables, the bf16 arms launch K1's
+     bf16 mode;
+  11. the kernels line, with the launch counts of each path it drove
+     (K1's bf16 mode as its own entry, resource_probe_bf16: phase 12's
+     bf16 arms are its path); then nvidia-smi's line, then the result
+     line {"ok": true, "device": {...}}.
 
 Every idle share comes from a profiler trace kept only when its K1, K3
 and K6 events equal the launches the wrappers counted during the traced
@@ -133,9 +162,9 @@ call (device_busy_ms); the line prints both.
 Each path's launch counts are set to 0 just before it and read just
 after; a path that does not launch each of its kernels fails. The
 host-only references (the serial oracle of phases 5 and 6, phase 6's
-CPU runs, the CPU flows of phases 8 and 9b) run from the start in three
-worker processes of two torch threads each (host_jobs), beside the
-card's phases.
+CPU runs, the CPU flows of phases 8 and 9b, phase 12's CPU run) run from
+the start in three worker processes of two torch threads each
+(host_jobs), beside the card's phases.
 
 Exits non-zero, printing no result, when CUDA is not available or when
 the port's package is not beside this script.
@@ -202,6 +231,11 @@ WIRE_SEPARATE_SIZE = (1000, 30000)
 WIRE_LATENCY_PODS = 200
 #: 10a's runs, each traced, until one trace keeps every K1 launch
 WIRE_TRACE_TRIES = 3
+#: phase 12: (nodes, pods) of the kernel-path profiles' backlog (the JAX
+#: package's bench.py --raw-curve size, at the north star's node count),
+#: and the warm calls of each arm after its cold one
+PROFILE_SIZE = (5000, 12288)
+PROFILE_WARM = 2
 
 
 def emit(phase: str, **kw) -> None:
@@ -449,6 +483,57 @@ def phase_kernel(PK, S):
         if not equal:
             raise AssertionError(f"probe kernel != plain on {label}")
     return results, max_err
+
+
+def phase_kernel_bf16(PK, S, i64_row):
+    """K1's bf16 mode against its plain version on every probe case and
+    term list (exact), and its device time at the density path's shape,
+    J=128, N=8,192 (the default terms), beside the int64 mode's
+    (i64_row, phase_kernel's row at that shape). -> (its row, the
+    largest |kernel - plain|)."""
+    max_err = 0
+    for seed, case in enumerate(S.PROBE_CASES):
+        label = case[0]
+        J, N, alloc, usage, pod, wants_res = probe_case_inputs(S, seed, case)
+        for name, terms in S.BF16_TERM_LISTS:
+            fr_k, tab_k = PK.resource_probe(J, alloc, usage, pod, terms,
+                                            wants_res=wants_res, bf16=True)
+            fr_p, tab_p = PK.resource_probe_plain(
+                J, alloc, usage, pod, terms, wants_res=wants_res, bf16=True)
+            _fr, tab_i = PK.resource_probe_plain(J, alloc, usage, pod,
+                                                 terms, wants_res=wants_res)
+            torch.cuda.synchronize()
+            err = max(int((fr_k - fr_p).abs().max()),
+                      int((tab_k - tab_p).abs().max()))
+            equal = bool(torch.equal(fr_k, fr_p)
+                         and torch.equal(tab_k, tab_p))
+            max_err = max(max_err, err)
+            emit("kernel_bf16_vs_plain", case=label, terms=name, J=J, N=N,
+                 equal=equal, max_abs_err=err,
+                 rounded_cells=int((tab_p != tab_i).sum()),
+                 cells=tab_p.numel())
+            if not equal:
+                raise AssertionError(f"probe kernel bf16 != plain on "
+                                     f"{label}, {name}")
+    J, N = 128, 8192
+    seed, case = next((i, c) for i, c in enumerate(S.PROBE_CASES)
+                      if c[1:3] == (J, N))
+    J, N, alloc, usage, pod, wants_res = probe_case_inputs(S, seed, case)
+    terms = dict(S.BF16_TERM_LISTS)["default"]
+    pv = PK.pod_vector(pod)
+    ms, call_device_ms, traces = kernel_device_ms(
+        lambda: PK._launch_bf16(J, alloc, usage, pv, terms, wants_res),
+        "resource_probe_bf16_kernel")
+    plain_ms = cuda_ms(lambda: PK.resource_probe_plain(
+        J, alloc, usage, pod, terms, wants_res=wants_res, bf16=True))
+    # the same bytes as the int64 mode: tab is int64 either way
+    bound_ms, bound_by = probe_bound_ms(J, N)
+    row = dict(ms=ms, call_device_ms=call_device_ms, traces=traces,
+               plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+               bound_share=bound_ms / ms, i64_ms=i64_row["ms"],
+               over_i64=ms / i64_row["ms"])
+    emit("kernel_bf16_time", J=J, N=N, terms="default", **row)
+    return row, max_err
 
 
 def phase_baseline(PK, S, baseline_src):
@@ -874,7 +959,8 @@ def phase_many_templates(PK, T, ClusterState, TorchScheduleAlgorithm, S,
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     k1, k1_shapes = PK.LAUNCHES, shapes(PK.LAUNCHES_BY_SHAPE)
-    j1 = sum(k for (J, _N), k in PK.LAUNCHES_BY_SHAPE.items() if J == 1)
+    j1 = sum(k for (J, _N, _m), k in PK.LAUNCHES_BY_SHAPE.items()
+             if J == 1)
     tally = dict(algo._wave.dispatches)
     if tally.get("group_probe", 0) < 1 or j1 <= 0:
         raise AssertionError(f"many templates took no grouped probe: {tally}")
@@ -1004,7 +1090,8 @@ def policy_cpu_names(name, n_nodes, services, per):
 def host_jobs(pool, S) -> dict:
     """Start the run's host-only reference computations in `pool`, so
     that they overlap the card's phases: the serial oracle of phases 5
-    and 6, phase 6's CPU runs and phase 8's CPU flow. -> {key:
+    and 6, phase 6's CPU runs, the CPU flows of phases 8 and 9b and
+    phase 12's CPU run. -> {key:
     AsyncResult}."""
     jobs = {"mixed_oracle": pool.apply_async(mixed_oracle_names,
                                              MIXED_SIZE)}
@@ -1016,6 +1103,8 @@ def host_jobs(pool, S) -> dict:
     jobs["gang_cpu"] = pool.apply_async(gang_cpu_flow, (GANG_SIZE,))
     jobs["daemon_gang_cpu"] = pool.apply_async(
         daemon_gang_cpu_flow, (DAEMON_GANG_SIZE, DAEMON_GANG_RETRIES))
+    jobs["profile_cpu"] = pool.apply_async(profile_cpu_names,
+                                           (PROFILE_SIZE,))
     return jobs
 
 
@@ -1900,6 +1989,242 @@ def phase_wire_separate(PK, ZK, ClusterState, TorchScheduleAlgorithm):
     return rec["k1"], rec["k1_shapes"]
 
 
+# -- phase 12: the kernel-path profiles ---------------------------------------
+
+
+#: (arm, environment, Policy document or None): the JAX package's
+#: bench.py --raw-curve arms, then the bf16 profile shadow-checked every
+#: wave, on the default weights and under POLICY_LR30
+PROFILE_ARMS = (
+    ("wide_serial", {"KUBERNETES_TPU_QUANT": "off",
+                     "KUBERNETES_TPU_PIPELINE": None}, None),
+    ("quant_serial", {"KUBERNETES_TPU_QUANT": "int",
+                      "KUBERNETES_TPU_PIPELINE": None}, None),
+    ("wide_pipeline", {"KUBERNETES_TPU_QUANT": "off",
+                       "KUBERNETES_TPU_PIPELINE": "1"}, None),
+    ("quant_pipeline", {"KUBERNETES_TPU_QUANT": "int",
+                        "KUBERNETES_TPU_PIPELINE": "1"}, None),
+    ("bf16", {"KUBERNETES_TPU_QUANT": "bf16",
+              "KUBERNETES_TPU_QUANT_SHADOW": "1",
+              "KUBERNETES_TPU_PIPELINE": None}, None),
+    ("bf16_lr30", {"KUBERNETES_TPU_QUANT": "bf16",
+                   "KUBERNETES_TPU_QUANT_SHADOW": "1",
+                   "KUBERNETES_TPU_PIPELINE": None}, "POLICY_LR30"),
+)
+
+
+def with_env(env, fn):
+    """fn() with the environment's keys set (None: unset), restored
+    after: the profiles' switches are read when the algorithm is built."""
+    saved = {k: os.environ.get(k) for k in env}
+    try:
+        for k, v in env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        return fn()
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def profile_algorithm(TorchScheduleAlgorithm, S, device, policy):
+    """The phase's algorithm on `device`: the default provider, or a
+    Policy document of scenarios through load_policy ->
+    create_from_config."""
+    if policy is None:
+        return TorchScheduleAlgorithm(device=device)
+    from kubernetes_tpu_torch.scheduler.factory import create_from_config
+    from kubernetes_tpu_torch.scheduler.policy import load_policy
+
+    return create_from_config(load_policy(json.dumps(getattr(S, policy))),
+                              device=device)
+
+
+def profile_cpu_names(size):
+    """wide_serial's call on the CPU (a host_jobs worker): -> (names,
+    seconds)."""
+    from kubernetes_tpu_torch.api import types as T
+    from kubernetes_tpu_torch.harness import scenarios as S
+    from kubernetes_tpu_torch.oracle import ClusterState
+    from kubernetes_tpu_torch.scheduler.algorithm import (
+        TorchScheduleAlgorithm,
+    )
+
+    nodes, services, pods = S.multi_template_backlog(T, *size)
+    state = ClusterState.build(nodes, services=services)
+    t0 = time.perf_counter()
+    names = with_env(PROFILE_ARMS[0][1], lambda: TorchScheduleAlgorithm(
+        device="cpu").schedule_backlog(pods, state))
+    return names, time.perf_counter() - t0
+
+
+def profile_call(PK, Packer, tp, algo, pods, state, rec, warm):
+    """One call of an arm's algorithm from round-robin counter 0: its
+    names; its wall, host-to-device bytes and K1 launches go into rec,
+    and for a warm call also the probe's and the encode's seconds, the
+    probe's overlap and the host's shipping (the pod rows' packing,
+    every upload: a pinned copy and a non_blocking copy, the unpacks)."""
+    from kubernetes_tpu_torch.models import wave as wave_mod
+
+    algo._last_node_index = 0
+    reset(PK)
+    torch.cuda.synchronize()
+    ov0, pt0 = tp.overlap_totals(), tp.phase_totals()
+    b0 = Packer.total_h2d_bytes
+    with Stopwatch(wave_mod, "pack_arrays") as pack_sw, \
+            Stopwatch(Packer, "upload") as upload_sw, \
+            Stopwatch(wave_mod, "unpack") as unpack_sw:
+        t0 = time.perf_counter()
+        names = algo.schedule_backlog(pods, state)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    ov1, pt1 = tp.overlap_totals(), tp.phase_totals()
+    for key, k in PK.LAUNCHES_BY_SHAPE.items():
+        rec["k1"][key] = rec["k1"].get(key, 0) + k
+    h2d = Packer.total_h2d_bytes - b0
+    if not warm:
+        wave = algo._wave
+        rec.update(cold_wall_s=wall, cold_h2d_bytes=h2d,
+                   cold_table_bytes=wave.stats["table_bytes_total"],
+                   placed_dtypes={f: str(wave._dev[f][2].dtype)
+                                  for f in ("zone_id", "taint_count",
+                                            "vz_zone", "vz_region")},
+                   cold_dispatches=dict(wave.dispatches))
+        return names
+    rec["warm_wall_s"].append(wall)
+    rec["warm_h2d_bytes"].append(h2d)
+    for key, phase, totals in (("probe_overlap_s", "probe", (ov0, ov1)),
+                               ("probe_s", "probe", (pt0, pt1)),
+                               ("encode_s", "encode", (pt0, pt1))):
+        rec[key] += totals[1][phase] - totals[0][phase]
+    for name, sw in (("pack_rows", pack_sw), ("upload", upload_sw),
+                     ("unpack_rows", unpack_sw)):
+        rec["warm_shipping"][name]["seconds"] += sw.seconds
+        rec["warm_shipping"][name]["calls"] += sw.calls
+    return names
+
+
+def phase_profiles(PK, S, TorchScheduleAlgorithm, jobs):
+    """The kernel-path profiles on the card (see the module docstring,
+    phase 12). -> (K1's bf16 launches on the bf16 arms, their shapes)."""
+    from kubernetes_tpu_torch.api import types as T
+    from kubernetes_tpu_torch.models.pack import Packer
+    from kubernetes_tpu_torch.oracle import ClusterState
+    from kubernetes_tpu_torch.trace import profile as tp
+
+    t_phase = time.perf_counter()
+    nodes, services, pods = S.multi_template_backlog(T, *PROFILE_SIZE)
+    state = ClusterState.build(nodes, services=services)
+    algos, names, recs = {}, {}, {}
+    for arm, env, policy in PROFILE_ARMS:
+        # the switches are read when the algorithm is built
+        algos[arm] = with_env(env, lambda: profile_algorithm(
+            TorchScheduleAlgorithm, S, "cuda", policy))
+        recs[arm] = {"k1": {}, "warm_wall_s": [], "warm_h2d_bytes": [],
+                     "probe_overlap_s": 0.0, "probe_s": 0.0,
+                     "encode_s": 0.0,
+                     "warm_shipping": {k: {"seconds": 0.0, "calls": 0}
+                                       for k in ("pack_rows", "upload",
+                                                 "unpack_rows")}}
+        names[arm] = profile_call(PK, Packer, tp, algos[arm], pods, state,
+                                  recs[arm], warm=False)
+    # the warm calls in turns, every arm once a round, the order reversed
+    # each round (ABBA), so that drift on the host falls on every arm
+    order = [arm for arm, _env, _policy in PROFILE_ARMS]
+    for r in range(PROFILE_WARM):
+        for arm in (order if r % 2 == 0 else order[::-1]):
+            if profile_call(PK, Packer, tp, algos[arm], pods, state,
+                            recs[arm], warm=True) != names[arm]:
+                raise AssertionError(f"kernel-path profiles: a warm call of "
+                                     f"{arm} chose other nodes than its "
+                                     f"cold one")
+    for arm, env, policy in PROFILE_ARMS:
+        wave, gate, rec = algos[arm]._wave, algos[arm]._shadow_gate, recs[arm]
+        rec.update(
+            pods_per_s_best=len(pods) / min(rec["warm_wall_s"]),
+            dispatches=dict(wave.dispatches),
+            stage=wave.dispatches.get("stage", 0),
+            k1_launches=sum(rec["k1"].values()),
+            k1_launches_by_shape=shapes(rec.pop("k1")),
+            shadow_gate=None if gate is None else gate.stats(),
+            table_stats=dict(wave.stats))
+        emit("profile_arm", arm=arm, nodes=PROFILE_SIZE[0],
+             pods=PROFILE_SIZE[1],
+             env={k: v for k, v in env.items() if v is not None},
+             policy=policy, unscheduled=names[arm].count(None), **rec)
+    # the LR 30 arm's reference: the same Policy at full width, one call
+    lr30_wide = with_env(
+        {"KUBERNETES_TPU_QUANT": "off", "KUBERNETES_TPU_PIPELINE": None},
+        lambda: profile_algorithm(TorchScheduleAlgorithm, S, "cuda",
+                                  "POLICY_LR30").schedule_backlog(
+                                      pods, state))
+    cpu_names, cpu_s = jobs["profile_cpu"].get()
+    base = names["wide_serial"]
+    if base != cpu_names:
+        raise AssertionError(f"kernel-path profiles: wide_serial on the "
+                             f"card != the CPU run "
+                             f"({first_difference(base, cpu_names)})")
+    for arm, _env, policy in PROFILE_ARMS:
+        want = lr30_wide if policy == "POLICY_LR30" else base
+        if names[arm] != want:
+            raise AssertionError(f"kernel-path profiles: {arm} chose other "
+                                 f"nodes ({first_difference(names[arm], want)})")
+        if None in names[arm]:
+            raise AssertionError(f"kernel-path profiles: {arm} left pods "
+                                 f"unplaced")
+        rec = recs[arm]
+        if "pipeline" in arm and rec["stage"] <= 0:
+            raise AssertionError(f"{arm} staged nothing: {rec['dispatches']}")
+        if "pipeline" not in arm and rec["stage"]:
+            raise AssertionError(f"{arm} staged without the pipeline")
+        modes = {d["mode"] for d in rec["k1_launches_by_shape"]}
+        if modes != ({"bf16", "i64"} if arm.startswith("bf16") else {"i64"}):
+            raise AssertionError(f"{arm} launched K1 in the modes {modes}")
+        gate = rec["shadow_gate"]
+        # every call is checked until a divergence, which falls back
+        if arm.startswith("bf16") and (gate is None or gate["checked"] != (
+                gate["divergence"] if gate["fallen_back"]
+                else 1 + PROFILE_WARM)):
+            raise AssertionError(f"{arm}: the shadow gate checked {gate}")
+    wide_b = recs["wide_serial"]["cold_table_bytes"]
+    quant_b = recs["quant_serial"]["cold_table_bytes"]
+    if not quant_b < wide_b:
+        raise AssertionError(f"narrowing placed {quant_b} table bytes, "
+                             f"full width {wide_b}")
+    bf16_launches = {arm: [d for d in recs[arm]["k1_launches_by_shape"]
+                           if d["mode"] == "bf16"]
+                     for arm in ("bf16", "bf16_lr30")}
+    emit("profiles", nodes=PROFILE_SIZE[0], pods=PROFILE_SIZE[1],
+         warm_calls=PROFILE_WARM,
+         cold_table_bytes={a: r["cold_table_bytes"] for a, r in recs.items()},
+         cold_table_bytes_wide_over_quant=wide_b / quant_b,
+         best_warm_wall_s={a: min(r["warm_wall_s"])
+                           for a, r in recs.items()},
+         pipeline_over_serial={
+             "wide": min(recs["wide_pipeline"]["warm_wall_s"])
+             / min(recs["wide_serial"]["warm_wall_s"]),
+             "quant": min(recs["quant_pipeline"]["warm_wall_s"])
+             / min(recs["quant_serial"]["warm_wall_s"])},
+         stage={a: r["stage"] for a, r in recs.items()},
+         probe_overlap_s={a: r["probe_overlap_s"] for a, r in recs.items()},
+         shadow_gates={a: recs[a]["shadow_gate"]
+                       for a in ("bf16", "bf16_lr30")},
+         bf16_launches_by_shape=bf16_launches,
+         cpu_wall_s=cpu_s, equal_to_cpu=True, lr30_equal_to_full_width=True,
+         lr30_names_differ_from_default=sum(
+             a != b for a, b in zip(names["bf16_lr30"], base)),
+         seconds=time.perf_counter() - t_phase)
+    k1_bf16 = sum(d["launches"] for rows in bf16_launches.values()
+                  for d in rows)
+    by_shape = {arm: rows for arm, rows in bf16_launches.items()}
+    return k1_bf16, by_shape
+
+
 def k6_shapes_of(VK) -> list:
     """K6's {(N, C): launches} -> [{"N", "C", "launches"}, ...] in
     order."""
@@ -1908,11 +2233,11 @@ def k6_shapes_of(VK) -> list:
 
 
 def shapes(by_shape: dict) -> list:
-    """K1's {(J, N): launches} -> [{"J", "N", "G", "launches"}, ...] in
-    order. K1 has no run axis: the grouped probe launches it once per run
-    (G = 1 each)."""
-    return [{"J": J, "N": N, "G": 1, "launches": k}
-            for (J, N), k in sorted(by_shape.items())]
+    """K1's {(J, N, mode): launches} -> [{"J", "N", "G", "mode",
+    "launches"}, ...] in order. K1 has no run axis: the grouped probe
+    launches it once per run (G = 1 each)."""
+    return [{"J": J, "N": N, "G": 1, "mode": mode, "launches": k}
+            for (J, N, mode), k in sorted(by_shape.items())]
 
 
 def main() -> int:
@@ -1980,6 +2305,8 @@ def run(args, jobs) -> int:
          seconds=time.perf_counter() - t0,
          ptxas={"resource_probe": ptxas_report(k1_lib,
                                                "resource_probe_kernel"),
+                "resource_probe_bf16": ptxas_report(
+                    k1_lib, "resource_probe_bf16_kernel"),
                 "zreplay": k3_ptxas,
                 "victim_score": k6_ptxas,
                 "chain_floor": {
@@ -1989,6 +2316,7 @@ def run(args, jobs) -> int:
          c_replay=replay._load_lib() is not None)
 
     times, max_err = phase_kernel(PK, S)
+    k1_bf16, bf16_err = phase_kernel_bf16(PK, S, times[(128, 8192)])
     if args.baseline:
         phase_baseline(PK, S, args.baseline)
     chain_us = phase_chain_floor(chain_lib)
@@ -2023,6 +2351,8 @@ def run(args, jobs) -> int:
                                          TorchScheduleAlgorithm)
     separate_k1, separate_k1_shapes = phase_wire_separate(
         PK, ZK, ClusterState, TorchScheduleAlgorithm)
+    profile_bf16, profile_bf16_shapes = phase_profiles(
+        PK, S, TorchScheduleAlgorithm, jobs)
 
     # the density path probes J=128 over the 5,000 nodes padded to 8,192;
     # the zoned density path runs one 50,000-pick run in a 65,536 bucket
@@ -2069,6 +2399,25 @@ def run(args, jobs) -> int:
         "grid": k1["grid"],
         "block": k1["block"],
         "j_chunk": k1["j_chunk"],
+        "library_ms": None,
+    }, {
+        "name": "resource_probe_bf16",
+        "route": "cuda",
+        "source": "kubernetes_tpu_torch/csrc/probe_kernel.cu",
+        "replaces": "kubernetes_tpu/ops/pallas_probe.py:63",
+        "mode": "bf16 (pallas_probe.py:95-104)",
+        "launches": profile_bf16,
+        "launches_by_path": {"profiles_bf16": profile_bf16},
+        "launches_by_shape": {"profiles_bf16": profile_bf16_shapes},
+        "max_abs_err": bf16_err,
+        "matches_plain": True,
+        "ms": k1_bf16["ms"],
+        "call_device_ms": k1_bf16["call_device_ms"],
+        "plain_ms": k1_bf16["plain_ms"],
+        "bound_ms": k1_bf16["bound_ms"],
+        "bound_by": k1_bf16["bound_by"],
+        "bound_share": k1_bf16["bound_share"],
+        "i64_ms": k1_bf16["i64_ms"],
         "library_ms": None,
     }, {
         "name": "zreplay",

@@ -11,6 +11,17 @@
 //   tab[j,n]     = w_lr * LeastRequested + w_ba * BalancedAllocation at
 //                  nz + (j+1)*pod_nz (BalancedAllocation in float64)
 //
+// The bf16 mode (resource_probe_bf16_kernel, pallas_probe.py:95-104, the
+// KUBERNETES_TPU_QUANT=bf16 profile) keeps the frontier and computes tab
+// from the ordered term list ((kind, weight), at most MAX_TERMS): each
+// term weight*score in int64, rounded to bfloat16 (int64 -> float
+// __ll2float_rn, float -> bfloat16 __float2bfloat16_rn), added into a
+// bfloat16 accumulator that starts at 0 and is rounded to nearest even
+// after every add, in declaration order; then bfloat16 -> float -> int32
+// toward zero -> int64. Summed weights cannot express that: the rounding
+// is per term. The two kernels share one body (probe_body); only the
+// store differs.
+//
 // Bound: bytes. The sweep writes J*N*8 bytes of tab once and reads about
 // 10*N*8 bytes of node tables; at J=128, N=8192 that is ~8.5 MB, ~2.7 us
 // at the H100's 3.35 TB/s. It has no matrix product and no tile that is
@@ -51,6 +62,7 @@
 // - a zero allocation makes BalancedAllocation's fraction 1.0.
 // - the host-port cap of the frontier stays outside, as in the JAX code.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 typedef long long i64;
@@ -68,6 +80,13 @@ constexpr int BLOCKS_PER_SM = 8;  // blocks a launch aims for, per SM
 constexpr int MIN_STEPS = 4;      // depths a j lane walks, at least
 // calculate_score's estimate needs 10*cap to fit in int64
 constexpr i64 EST_CAP_MAX = 1LL << 59;
+// the bf16 mode's ordered term list, passed by value
+constexpr int MAX_TERMS = 8;
+struct ProbeTerms {
+    int n;                 // terms in use
+    int ba[MAX_TERMS];     // 0: LeastRequested, 1: BalancedAllocation
+    i64 w[MAX_TERMS];      // weights, in declaration order
+};
 
 // the reference's `//` on int64 (d != 0)
 __device__ __noinline__ i64 floor_div(i64 n, i64 d) {
@@ -102,7 +121,30 @@ __device__ __forceinline__ i64 balanced(double cpu_frac, double mem_frac) {
     return __double2ll_rz(__dsub_rn(10.0, __dmul_rn(diff, 10.0)));
 }
 
-__global__ void __launch_bounds__(TILE_N * LANES_J) resource_probe_kernel(
+// the bf16 mode's weighted sum: per-term rounding to bfloat16, a bfloat16
+// accumulator rounded after each add, then back through int32 toward
+// zero. A float add of two bfloat16 values then __float2bfloat16_rn is
+// the correctly rounded bfloat16 add: float's 24-bit significand holds
+// the exact sum, or a value too close to it to cross a bfloat16 rounding
+// boundary
+__device__ __forceinline__ i64 bf16_sum(const ProbeTerms& t, i64 lr,
+                                        i64 ba) {
+    __nv_bfloat16 acc = __float2bfloat16_rn(0.0f);
+    // unrolled, so every index into the parameter struct is static and
+    // the list never goes through local memory
+#pragma unroll
+    for (int k = 0; k < MAX_TERMS; ++k) {
+        if (k >= t.n) break;
+        const i64 term = (i64)((u64)t.w[k] * (u64)(t.ba[k] ? ba : lr));
+        const __nv_bfloat16 tb = __float2bfloat16_rn(__ll2float_rn(term));
+        acc = __float2bfloat16_rn(
+            __fadd_rn(__bfloat162float(acc), __bfloat162float(tb)));
+    }
+    return (i64)__float2int_rz(__bfloat162float(acc));
+}
+
+template <bool BF16>
+__device__ __forceinline__ void probe_body(
     const i64* __restrict__ pod,
     const i64* __restrict__ a_cpu, const i64* __restrict__ a_mem,
     const i64* __restrict__ a_gpu, const i64* __restrict__ a_pods,
@@ -110,7 +152,8 @@ __global__ void __launch_bounds__(TILE_N * LANES_J) resource_probe_kernel(
     const i64* __restrict__ u_gpu, const i64* __restrict__ u_nzc,
     const i64* __restrict__ u_nzm, const i64* __restrict__ u_cnt,
     u64* __restrict__ frontier, i64* __restrict__ tab,
-    int J, int N, int chunk, i64 w_lr, i64 w_ba, int wants_res) {
+    int J, int N, int chunk, i64 w_lr, i64 w_ba, const ProbeTerms& terms,
+    int wants_res) {
     __shared__ int fits[LANES_J][TILE_N];
     const int n = blockIdx.x * TILE_N + threadIdx.x;
     const int j0 = blockIdx.y * chunk + threadIdx.y;
@@ -156,7 +199,10 @@ __global__ void __launch_bounds__(TILE_N * LANES_J) resource_probe_kernel(
                             + (u64)calculate_score(tm, am, mem_frac);
             const i64 lr = (i64)lr2 >> 1;
             const i64 ba = balanced(cpu_frac, mem_frac);
-            *out = (i64)((u64)w_lr * (u64)lr + (u64)w_ba * (u64)ba);
+            if constexpr (BF16)
+                *out = bf16_sum(terms, lr, ba);
+            else
+                *out = (i64)((u64)w_lr * (u64)lr + (u64)w_ba * (u64)ba);
             need_c += step_c;
             need_m += step_m;
             need_g += step_g;
@@ -173,6 +219,36 @@ __global__ void __launch_bounds__(TILE_N * LANES_J) resource_probe_kernel(
         for (int y = 0; y < LANES_J; ++y) sum += fits[y][threadIdx.x];
         atomicAdd(frontier + n, (u64)sum);
     }
+}
+
+__global__ void __launch_bounds__(TILE_N * LANES_J) resource_probe_kernel(
+    const i64* __restrict__ pod,
+    const i64* __restrict__ a_cpu, const i64* __restrict__ a_mem,
+    const i64* __restrict__ a_gpu, const i64* __restrict__ a_pods,
+    const i64* __restrict__ u_cpu, const i64* __restrict__ u_mem,
+    const i64* __restrict__ u_gpu, const i64* __restrict__ u_nzc,
+    const i64* __restrict__ u_nzm, const i64* __restrict__ u_cnt,
+    u64* __restrict__ frontier, i64* __restrict__ tab,
+    int J, int N, int chunk, i64 w_lr, i64 w_ba, int wants_res) {
+    const ProbeTerms none{};
+    probe_body<false>(pod, a_cpu, a_mem, a_gpu, a_pods, u_cpu, u_mem, u_gpu,
+                      u_nzc, u_nzm, u_cnt, frontier, tab, J, N, chunk, w_lr,
+                      w_ba, none, wants_res);
+}
+
+__global__ void __launch_bounds__(TILE_N * LANES_J)
+resource_probe_bf16_kernel(
+    const i64* __restrict__ pod,
+    const i64* __restrict__ a_cpu, const i64* __restrict__ a_mem,
+    const i64* __restrict__ a_gpu, const i64* __restrict__ a_pods,
+    const i64* __restrict__ u_cpu, const i64* __restrict__ u_mem,
+    const i64* __restrict__ u_gpu, const i64* __restrict__ u_nzc,
+    const i64* __restrict__ u_nzm, const i64* __restrict__ u_cnt,
+    u64* __restrict__ frontier, i64* __restrict__ tab,
+    int J, int N, int chunk, ProbeTerms terms, int wants_res) {
+    probe_body<true>(pod, a_cpu, a_mem, a_gpu, a_pods, u_cpu, u_mem, u_gpu,
+                     u_nzc, u_nzm, u_cnt, frontier, tab, J, N, chunk, 0, 0,
+                     terms, wants_res);
 }
 
 // The launch shape for (J, N) on the current device.
@@ -236,6 +312,41 @@ extern "C" int resource_probe_launch(
             (const i64*)u_mem, (const i64*)u_gpu, (const i64*)u_nzc,
             (const i64*)u_nzm, (const i64*)u_cnt, (u64*)frontier,
             (i64*)tab, J, N, chunk, w_lr, w_ba, wants_res);
+    }
+    return (int)cudaGetLastError();
+}
+
+// The bf16 mode: the same launch with the ordered term list (n_terms <=
+// MAX_TERMS; kinds[k] 0 for LeastRequested, 1 for BalancedAllocation)
+// in place of the summed weights. frontier must hold N zeros. Returns
+// cudaErrorInvalidValue for n_terms outside [0, MAX_TERMS], else
+// cudaGetLastError() after the launch.
+extern "C" int resource_probe_bf16_launch(
+    const void* pod, const void* a_cpu, const void* a_mem,
+    const void* a_gpu, const void* a_pods, const void* u_cpu,
+    const void* u_mem, const void* u_gpu, const void* u_nzc,
+    const void* u_nzm, const void* u_cnt, void* frontier, void* tab,
+    int J, int N, int n_terms, const int* kinds, const long long* weights,
+    int wants_res, void* stream) {
+    if (n_terms < 0 || n_terms > MAX_TERMS) return (int)cudaErrorInvalidValue;
+    ProbeTerms terms{};
+    terms.n = n_terms;
+    for (int k = 0; k < n_terms; ++k) {
+        terms.ba[k] = kinds[k] != 0;
+        terms.w[k] = weights[k];
+    }
+    if (J > 0 && N > 0) {
+        dim3 grid, block;
+        int chunk = 0;
+        const int err = probe_grid(J, N, &grid, &block, &chunk);
+        if (err != 0) return err;
+        resource_probe_bf16_kernel<<<grid, block, 0,
+                                     (cudaStream_t)stream>>>(
+            (const i64*)pod, (const i64*)a_cpu, (const i64*)a_mem,
+            (const i64*)a_gpu, (const i64*)a_pods, (const i64*)u_cpu,
+            (const i64*)u_mem, (const i64*)u_gpu, (const i64*)u_nzc,
+            (const i64*)u_nzm, (const i64*)u_cnt, (u64*)frontier,
+            (i64*)tab, J, N, chunk, terms, wants_res);
     }
     return (int)cudaGetLastError();
 }

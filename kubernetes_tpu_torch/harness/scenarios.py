@@ -532,6 +532,81 @@ POLICY_SAA = {
 
 POLICY_DOCUMENTS = {"services": POLICY_SERVICES, "saa": POLICY_SAA}
 
+#: the default provider's predicates and priorities with
+#: LeastRequestedPriority at weight 30: the summed |weight| * 10 bound of
+#: the LR/BA terms is 310, past bfloat16's exact integers (256), so the
+#: KUBERNETES_TPU_QUANT=bf16 profile rounds under it
+POLICY_LR30 = {
+    "kind": "Policy",
+    "apiVersion": "v1",
+    "predicates": [{"name": n} for n in (
+        "NoDiskConflict", "NoVolumeZoneConflict", "MaxEBSVolumeCount",
+        "MaxGCEPDVolumeCount", "GeneralPredicates", "PodToleratesNodeTaints",
+        "CheckNodeMemoryPressure", "MatchInterPodAffinity")],
+    "priorities": [{"name": n, "weight": w} for n, w in (
+        ("LeastRequestedPriority", 30), ("BalancedResourceAllocation", 1),
+        ("SelectorSpreadPriority", 1), ("NodeAffinityPriority", 1),
+        ("TaintTolerationPriority", 1), ("InterPodAffinityPriority", 1))],
+}
+
+#: K1's bf16 mode's term lists: the default profile (bound 20, exact) and
+#: two whose bound passes 256, in both declaration orders
+BF16_TERM_LISTS = (
+    ("default", (("lr", 1), ("ba", 1))),
+    ("LR 30 + BA 1", (("lr", 30), ("ba", 1))),
+    ("BA 7 + LR 40", (("ba", 7), ("lr", 40))),
+)
+
+
+def multi_template_backlog(T, num_nodes, num_pods, templates=8, block=512):
+    """-> (nodes, services, pods): the kernel-path profiles' backlog, the
+    counterpart of the JAX package's bench.py build_multi. Pods come in
+    `block`-sized runs cycling `templates` groups (100m / 500Mi), each
+    group carrying a PREFERRED anti-affinity term against the NEXT
+    group's labels and one Service selecting it: a soft non-self term
+    never blocks placement but makes the run impure, so every run takes
+    the per-run probe, the shape the double-buffered pipeline stages
+    across. Nodes: density_nodes' shape named node-00000.. with their
+    hostname label."""
+    nodes = [
+        T.Node(
+            metadata=T.ObjectMeta(name=f"node-{i:05d}",
+                                  labels={HOSTNAME: f"node-{i:05d}"}),
+            status=T.NodeStatus(
+                allocatable={"cpu": "4", "memory": "32Gi", "pods": "110"},
+                conditions=[T.NodeCondition("Ready", "True")],
+            ),
+        )
+        for i in range(num_nodes)
+    ]
+
+    def pod(i):
+        t = (i // block) % templates
+        p = T.Pod(
+            metadata=T.ObjectMeta(name=f"pod-{i:06d}",
+                                  labels={"group": f"g{t:02d}"}),
+            spec=T.PodSpec(containers=[T.Container(
+                requests={"cpu": "100m", "memory": "500Mi"})]),
+        )
+        p.metadata.annotations = {AFFINITY_ANNOTATION: json.dumps({
+            "podAntiAffinity": {
+                "preferredDuringSchedulingIgnoredDuringExecution": [{
+                    "weight": 1,
+                    "podAffinityTerm": {
+                        "labelSelector": {"matchLabels": {
+                            "group": f"g{(t + 1) % templates:02d}"}},
+                        "topologyKey": HOSTNAME,
+                        "namespaces": [],
+                    },
+                }],
+            },
+        })}
+        return p
+
+    services = [service(T, f"svc-{t:02d}", {"group": f"g{t:02d}"})
+                for t in range(templates)]
+    return nodes, services, [pod(i) for i in range(num_pods)]
+
 
 def policy_nodes(T, n, zones=("a", "b", "c"), seed=0, pods_cap="110"):
     """density_nodes labelled for the Policy documents and for a

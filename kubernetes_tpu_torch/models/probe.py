@@ -11,7 +11,11 @@ recomputes when it changes. The probe evaluates the static parts with
 the scan's own functions (models/batch.fit_mask and ops/*) and the
 resource j-tables with the hand-written CUDA kernel
 (ops/probe_kernel.resource_probe; its plain torch version on the CPU),
-as the JAX package's kernel="pallas" build does.
+as the JAX package's kernel="pallas" build does. Under the
+KUBERNETES_TPU_QUANT=bf16 profile (WaveProbe's score_mode, from
+parallel/quant.score_mode) the single-run probe's j-table takes K1's
+bf16 mode: each weighted LR/BA term rounded to bfloat16 and summed in
+bfloat16 in declaration order, then truncated through int32.
 
 Its product crosses to the host as ONE int64 array: the 11 header rows,
 then the [J, N] j-table in the narrowest safe dtype, packed into int64
@@ -20,6 +24,13 @@ words along j — the same layout as the JAX package, which the host half
 verbatim from kubernetes_tpu/models/probe.py) unpacks. The grouped
 probe (WaveProbe.probe_group) ships only the header rows of a group of
 runs, probed at J=1, plus the live resource block, also in one copy.
+
+probe_fused_dispatch / probe_fused_collect split a single-run probe for
+the wave driver's pipeline: dispatch enqueues the fold and the probe and
+starts the product's device-to-host copy into pinned memory (a
+non_blocking copy into pageable memory would be synchronous), then
+records a CUDA event; collect waits on that event and unpacks. On the
+CPU dispatch computes the product and collect unpacks it.
 """
 
 from __future__ import annotations
@@ -51,6 +62,7 @@ from kubernetes_tpu_torch.models.batch import (
 from kubernetes_tpu_torch.ops import interpod as IP
 from kubernetes_tpu_torch.ops import priorities as R
 from kubernetes_tpu_torch.ops import probe_kernel as PK
+from kubernetes_tpu_torch.parallel import quant
 from kubernetes_tpu_torch.snapshot.services import ORD_NONE
 
 I64 = torch.int64
@@ -114,10 +126,11 @@ def _gather_lt(static, table):
 
 
 def _probe_rows(config: SchedulerConfig, num_zones: int, num_values: int,
-                J: int, static, carry, pod):
+                J: int, static, carry, pod, *, score_mode: str = "i64"):
     """The probe body: -> (stk i64[N_STK_ROWS, N] header rows,
     tab i64[J, N] weighted LR+BA j-table). The resource section (fit
-    frontier + LR/BA j-table) always goes through the probe kernel."""
+    frontier + LR/BA j-table) always goes through the probe kernel, in
+    its bf16 mode when score_mode == "bf16"."""
     res = carry["res"]
     N = res.shape[1]
     dev = res.device
@@ -139,7 +152,7 @@ def _probe_rows(config: SchedulerConfig, num_zones: int, num_values: int,
         (static["alloc_mcpu"], static["alloc_mem"], static["alloc_gpu"],
          static["alloc_pods"]),
         tuple(res[k] for k in range(6)), pod, terms,
-        wants_res=wants_resources(config),
+        wants_res=wants_resources(config), bf16=score_mode == "bf16",
     )
     if wants_ports(config):
         # host-port self-conflict (predicates.go:574) applied to the
@@ -234,12 +247,12 @@ def _probe_rows(config: SchedulerConfig, num_zones: int, num_values: int,
 
 
 def _probe_fn(config: SchedulerConfig, num_zones: int, num_values: int,
-              J: int, static, carry, pod):
+              J: int, static, carry, pod, *, score_mode: str = "i64"):
     """-> {"packed": i64[N_STK_ROWS + J // k, N]}: the header rows, then
     the j-table in _tab_dtype bit-packed k to an int64 word along j (J
     is a power of two >= 16 on the probe path, so k divides it)."""
     stk, tab = _probe_rows(config, num_zones, num_values, J, static, carry,
-                           pod)
+                           pod, score_mode=score_mode)
     N = stk.shape[1]
     dt = np.dtype(_tab_dtype(config))
     k = 8 // dt.itemsize
@@ -286,10 +299,21 @@ def _tab_dtype(config: SchedulerConfig):
             else np.int16 if bound <= 32767 else np.int32)
 
 class WaveProbe:
-    """Runs the probe for a run and unpacks its product into RunTables."""
+    """Runs the probe for a run and unpacks its product into RunTables.
 
-    def __init__(self, config: Optional[SchedulerConfig] = None):
+    score_mode: "i64" or "bf16" (the single-run probe's j-table
+    accumulation); None reads the KUBERNETES_TPU_QUANT profile
+    (parallel/quant.score_mode), as the JAX package's WaveProbe does.
+    Per instance, so a shadow driver can force the full-width build."""
+
+    def __init__(self, config: Optional[SchedulerConfig] = None, *,
+                 score_mode: Optional[str] = None):
         self.config = config or SchedulerConfig()
+        self.score_mode = score_mode or quant.score_mode()
+
+    def _packed(self, static, carry, pod, num_zones, num_values, J):
+        return _probe_fn(self.config, num_zones, num_values, J, static,
+                         carry, pod, score_mode=self.score_mode)["packed"]
 
     def probe(self, static, carry, pod, num_zones: int, num_values: int,
               J: int, rows: Optional[int] = None,
@@ -304,14 +328,57 @@ class WaveProbe:
         if rows is None:
             rows = J
         rows = max(1, min(rows, J))
-        packed = _probe_fn(self.config, num_zones, num_values, J, static,
-                           carry, pod)["packed"]
+        packed = self._packed(static, carry, pod, num_zones, num_values, J)
         arr = np.ascontiguousarray(packed.cpu().numpy())
         return tables_from_packed(
             self.config, arr, num_zones, J, rows,
             has_selectors=(bool(pod["has_selectors"])
                            if has_selectors is None else has_selectors),
             zone_id=zone_id, self_anti_veto=self_anti_veto, svc_ctx=svc_ctx,
+        )
+
+    def probe_fused_dispatch(self, static, carry, prev_pod, counts,
+                             next_pod, num_zones: int, num_values: int,
+                             J: int, apply_fn):
+        """Fold the previous run's commits (`counts` of `prev_pod`, via
+        apply_fn; nothing when prev_pod is None) into the carry, launch
+        the probe of `next_pod` against it, and start the product's
+        device-to-host copy without waiting for it: -> (carry, raw). On
+        CUDA raw holds a pinned host tensor that the copy fills and the
+        event recorded after it; the caller stages host work, then calls
+        probe_fused_collect. Nothing in the computation differs from
+        probe_fused, so decisions are identical."""
+        if prev_pod is not None:
+            carry = apply_fn(static, carry, prev_pod, counts)
+        packed = self._packed(static, carry, next_pod, num_zones,
+                              num_values, J)
+        if packed.device.type != "cuda":
+            return carry, (packed, None)
+        host = torch.empty(packed.shape, dtype=packed.dtype,
+                           pin_memory=True)
+        host.copy_(packed, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record()
+        return carry, (host, done)
+
+    def probe_fused_collect(self, raw, num_zones: int, J: int,
+                            rows: Optional[int], has_selectors: bool,
+                            zone_id: Optional[np.ndarray] = None,
+                            self_anti_veto: Optional[np.ndarray] = None,
+                            svc_ctx: Optional[dict] = None) -> "RunTables":
+        """Wait for a probe_fused_dispatch product's copy and unpack it
+        into RunTables."""
+        if rows is None:
+            rows = J
+        rows = max(1, min(rows, J))
+        host, done = raw
+        if done is not None:
+            done.synchronize()
+        arr = np.ascontiguousarray(host.numpy())
+        return tables_from_packed(
+            self.config, arr, num_zones, J, rows,
+            has_selectors=has_selectors, zone_id=zone_id,
+            self_anti_veto=self_anti_veto, svc_ctx=svc_ctx,
         )
 
     def probe_fused(self, static, carry, prev_pod, counts, next_pod,
@@ -322,17 +389,19 @@ class WaveProbe:
                     svc_ctx: Optional[dict] = None):
         """-> (carry, RunTables). Folds the previous run's commits
         (`counts` of `prev_pod`, via apply_fn) into the carry, then probes
-        `next_pod` against the updated carry. The JAX package compiles
-        three programs for this: "first" (prev_pod None: nothing to fold
-        yet), "same" (a run re-probing itself past the table horizon:
-        prev_pod is next_pod) and "prev"; run eagerly they are one
-        method."""
-        if prev_pod is not None:
-            carry = apply_fn(static, carry, prev_pod, counts)
-        return carry, self.probe(
-            static, carry, next_pod, num_zones, num_values, J, rows,
-            has_selectors=has_selectors, zone_id=zone_id,
-            self_anti_veto=self_anti_veto, svc_ctx=svc_ctx,
+        `next_pod` against the updated carry: the serial form,
+        probe_fused_dispatch immediately followed by probe_fused_collect.
+        The JAX package compiles three programs for the fold + probe:
+        "first" (prev_pod None: nothing to fold yet), "same" (a run
+        re-probing itself past the table horizon: prev_pod is next_pod)
+        and "prev"; run eagerly they are one method."""
+        carry, raw = self.probe_fused_dispatch(
+            static, carry, prev_pod, counts, next_pod, num_zones,
+            num_values, J, apply_fn)
+        return carry, self.probe_fused_collect(
+            raw, num_zones, J, rows, has_selectors=has_selectors,
+            zone_id=zone_id, self_anti_veto=self_anti_veto,
+            svc_ctx=svc_ctx,
         )
 
     def probe_group(self, static, carry, prev, pods, G: int,

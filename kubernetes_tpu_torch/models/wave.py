@@ -50,13 +50,36 @@ incremental encoder's unchanged fields), or whose host mirror shows no
 changed row, reuses its tensor; one with at most SCATTER_FRAC of its
 rows changed is updated by row; any other is shipped anew; a new
 `source` (snapshot producer) clears the cache. `stats` counts the ships,
-reuses, scatters and bytes. The carry starts each wave as a copy of its
-cached tensors, since the wave's folds update it in place.
+reuses, scatters and bytes (the placed tensors' bytes on the device).
+The carry starts each wave as a copy of its cached tensors, since the
+wave's folds update it in place.
 
-Left to later slices, none of which changes a decision: the pipeline,
-packed buffers, quantized tables, the mesh. The run/eligibility/group
-helpers below are verbatim copies of the JAX driver's host code, except
-group_buffer (see its docstring).
+The kernel-path profiles of the JAX driver, with its env switches:
+  * quantized placement (KUBERNETES_TPU_QUANT, parallel/quant; on by
+    default): a NARROWABLE table is placed at the narrowest signed dtype
+    that holds it (int8 or int16; its host mirror keeps full width), and
+    the placement dtype is part of the cache check, so a value past the
+    narrow range rebuilds the table one width up;
+  * one transfer per shipment (models/pack.Packer): the missing tables
+    of a wave, a table's changed rows, a run's pod row, a group's pod
+    rows (group_buffer) and the scan's pods each cross in one packed
+    uint8 buffer, unpacked on the device;
+  * the double-buffered run pipeline (KUBERNETES_TPU_PIPELINE, off by
+    default): a single-run probe splits into dispatch and collect
+    (WaveProbe.probe_fused_dispatch / _collect), and between the two the
+    next single run's pod row is packed and its upload started
+    ("stage" in the tally), under phase_timer("encode") nested in the
+    probe's phase_timer("probe"). Staging uses the current stream: the
+    upload is ordered after the probe's device-to-host copy and before
+    anything that reads it, so no stream synchronization is needed, and
+    what the pipeline hides is the host's packing, which overlaps the
+    device's probe whichever stream carries the few bytes of the row;
+  * the bf16 j-table profile (KUBERNETES_TPU_QUANT=bf16): the probe's
+    score_mode, K1's bf16 mode; scheduler/algorithm.py shadow-checks it.
+Decisions are identical with every switch on or off (tests/
+test_torch_quant.py, test_torch_pipeline.py). The mesh driver is left
+to a later slice. The run/eligibility/group helpers below are verbatim
+copies of the JAX driver's host code.
 """
 
 from __future__ import annotations
@@ -86,6 +109,12 @@ from kubernetes_tpu_torch.models.batch import (
     wants_resources,
 )
 from kubernetes_tpu_torch.models import hosttab
+from kubernetes_tpu_torch.models.pack import (
+    Packer,
+    pack_arrays,
+    placed_dtype,
+    unpack,
+)
 from kubernetes_tpu_torch.models.probe import (
     RunTables,
     WaveProbe,
@@ -94,15 +123,29 @@ from kubernetes_tpu_torch.models.probe import (
 from kubernetes_tpu_torch.models.replay import ReplayResult, replay_fast
 from kubernetes_tpu_torch.models.zreplay import ZReplay
 from kubernetes_tpu_torch.ops import services as SV
-from kubernetes_tpu_torch.snapshot.carry import place, to_device
+from kubernetes_tpu_torch.parallel import quant
+from kubernetes_tpu_torch.snapshot.carry import place
 from kubernetes_tpu_torch.snapshot.encode import (
     RES_CARRY_FIELDS,
     ClusterSnapshot,
     PodBatch,
 )
 from kubernetes_tpu_torch.snapshot.pad import next_pow2
+from kubernetes_tpu_torch.trace.profile import phase_timer
 
 I64 = torch.int64
+
+#: KUBERNETES_TPU_PIPELINE=1: double-buffered run pipeline — stage the
+#: next run's pod buffer (pack + async upload) while the current probe
+#: is in flight on device (models/probe dispatch/collect split)
+ENV_PIPELINE = "KUBERNETES_TPU_PIPELINE"
+
+
+def _pipeline_enabled() -> bool:
+    import os
+
+    return os.environ.get(ENV_PIPELINE, "").strip().lower() in (
+        "1", "true", "on", "yes")
 
 _WAVE_PRIORITIES = {
     LEAST_REQUESTED,
@@ -188,23 +231,27 @@ def run_pure(config: SchedulerConfig, batch: PodBatch, i: int,
     return True
 
 
-def group_buffer(pods: dict, reps, floor: int = 8):
-    """A group's run representatives as ONE dict of placed pod rows:
-    -> (G_bucket, {field: tensor[G_bucket, ...]}), padded to a pow2 run
-    bucket by repeating the LAST rep — padded slots schedule nothing and
-    their commit counts stay zero (the padding rule of the
-    host_group_replay / grouped-fold contract).
+def group_buffer(batch: PodBatch, reps, floor: int = 8):
+    """Pack a group's run representatives (padded to a pow2 run bucket
+    by repeating the LAST rep — padded slots schedule nothing and their
+    commit counts stay zero) into ONE stacked buffer:
+    -> (G_bucket, layout, uint8 host buffer). Shared by the single-chip
+    and mesh wave drivers: the padding rule is part of the
+    host_group_replay / grouped-fold contract.  The mesh resident
+    driver passes floor=1: its exact host usage mirror lets even a
+    SINGLETON pure run ride the header-only probe (the j-table is a
+    host rebuild, models/hosttab), so padding the run bucket to 8 would
+    octuple the header shipment for nothing."""
+    from kubernetes_tpu_torch.models.pack import pack_arrays
 
-    Deviation from kubernetes_tpu/models/wave.py group_buffer, which
-    packs the same rows into one uint8 buffer through models/pack.py (not
-    ported): here `pods` are the wave's placed unique-representative rows
-    (field -> tensor[U, ...]) and the group's rows are gathered from them
-    on the device."""
     G_bucket = next_pow2(len(reps), floor=floor)
     reps = list(reps) + [reps[-1]] * (G_bucket - len(reps))
-    idx = torch.as_tensor(reps, dtype=I64,
-                          device=pods["req_mcpu"].device)
-    return G_bucket, {f: t[idx] for f, t in pods.items()}
+    seg = gather_batch(batch, np.asarray(reps, np.int64))
+    layout, buf = pack_arrays({
+        f: np.asarray(getattr(seg, f))
+        for f in BatchScheduler.POD_FIELDS
+    })
+    return G_bucket, layout, buf
 
 
 def gang_score_add(tables: RunTables, add: np.ndarray) -> RunTables:
@@ -609,15 +656,25 @@ class WaveScheduler:
     index) bit-identically to the serial scan, fast-pathing runs, on
     `device`. replay= replaces the host replay engine (a testing seam);
     given one, zoned selector-spread runs take it instead of the device
-    replay, as in the JAX driver."""
+    replay, as in the JAX driver. quant_mode ("int", "off", "bf16") and
+    pipeline default from KUBERNETES_TPU_QUANT and
+    KUBERNETES_TPU_PIPELINE; explicit values let a shadow driver or an
+    A/B run force a build (parallel/quant)."""
 
     def __init__(self, config: Optional[SchedulerConfig] = None,
                  min_run: int = 16, max_j: int = 1024, device="cuda",
-                 replay=None):
+                 replay=None, quant_mode: Optional[str] = None,
+                 pipeline: Optional[bool] = None):
         self.config = config or SchedulerConfig()
         self.device = torch.device(device)
         self.scan = BatchScheduler(self.config, device=self.device)
-        self.probe = WaveProbe(self.config)
+        self._quant_mode = quant.mode() if quant_mode is None else quant_mode
+        self.probe = WaveProbe(self.config,
+                               score_mode=quant.score_mode(self._quant_mode))
+        # double-buffered run pipeline: only host staging moves under
+        # the device's probe window, so decisions stay identical
+        self.pipeline = (_pipeline_enabled() if pipeline is None
+                         else bool(pipeline))
         self.min_run = min_run
         self.max_j = max_j
         self._replay = replay or replay_fast
@@ -629,14 +686,18 @@ class WaveScheduler:
         # per-wave tally of device dispatches, the JAX driver's keys:
         # "probe", "group_probe", "zreplay", "zreplay_group", "apply"
         # (a fold no probe carried), "scan" (flushes to the serial scan),
-        # "table_scatter" (a resident table updated by row); and
+        # "table_scatter" (a resident table updated by row), "stage" (a
+        # pipelined run's pod row staged under a probe); and
         # "scan_pods", the pods the scan decided
         self.dispatches: dict = {}
+        self._packer = Packer(self.device)
         # device-resident snapshot fields across waves: field -> (host
-        # shape, host dtype, device tensor, host MIRROR). The caller's
-        # `keep` names fields unchanged since the previous wave; others
-        # are reused when the mirror shows no changed row, updated by
-        # row when few rows moved, and shipped anew otherwise.
+        # shape, host dtype, device tensor, full-width host MIRROR). The
+        # caller's `keep` names fields unchanged since the previous wave;
+        # others are reused when the mirror shows no changed row, updated
+        # by row when few rows moved, and shipped anew otherwise; a
+        # tensor whose dtype is not the placement dtype the table needs
+        # now is shipped anew too.
         # `_dev_source` names the snapshot's producer: a from-scratch
         # encoder's vocab bit and slot assignments differ from the
         # incremental encoder's, so a producer change clears the cache.
@@ -674,21 +735,42 @@ class WaveScheduler:
     def _nbytes(t: torch.Tensor) -> int:
         return t.numel() * t.element_size()
 
-    def _to_dev_many(self, snap: ClusterSnapshot, fields, keep: frozenset):
-        """Device tensors for `fields` of snap, from the resident cache
-        where it holds them (kubernetes_tpu/models/wave.py
-        _to_dev_many). The placement dtype is the port's rule for the
-        host dtype (snapshot/carry.place): the JAX driver's narrowing to
-        a quantized dtype belongs to ROADMAP.md queue 1 item 3. A row
-        update is index_copy_ on the device, the JAX driver's jitted
-        `.at[rows].set`."""
+    def _placement(self, f: str, host: np.ndarray):
+        """-> (the dtype table `f` is shipped at, whether it stays that
+        narrow on the device): parallel/quant's width audit when
+        narrowing is on (a NARROWABLE table at int8 or int16), the
+        host dtype otherwise."""
+        if not quant.narrow_enabled(self._quant_mode):
+            return host.dtype, False
+        dt = quant.narrow_dtype(f, host)
+        return dt, (f in quant.NARROWABLE and dt.kind == "i"
+                    and dt.itemsize <= 2)
+
+    def _to_dev_many(self, snap: ClusterSnapshot, fields, keep: frozenset,
+                     extra=None):
+        """Device tensors for `fields` of snap (+ `extra`, host arrays
+        shipped with them and not cached), from the resident cache where
+        it holds them (kubernetes_tpu/models/wave.py _to_dev_many). Every
+        miss crosses in ONE packed transfer (models/pack.Packer); a row
+        update crosses in one more per table and lands by index_copy_,
+        the JAX driver's jitted `.at[rows].set`. A table rides a narrowed
+        dtype when parallel/quant allows (its mirror keeps full width);
+        the placement dtype is part of the cache check, so a value past
+        the narrow range rebuilds the table one width up. Others take
+        the port's placement rule (models/pack.unpack)."""
         out = {}
+        missing = {}
+        narrowed = set()
         st = self.stats
         for f in fields:
             host = np.asarray(getattr(snap, f))
+            place_dt, narrow = self._placement(f, host)
+            if narrow:
+                narrowed.add(f)
             ent = self._dev.get(f)
             if ent is not None and ent[0] == host.shape \
-                    and ent[1] == host.dtype:
+                    and ent[1] == host.dtype \
+                    and ent[2].dtype == placed_dtype(place_dt, narrow):
                 dev = ent[2]
                 changed = (None if f in keep
                            else np.nonzero(self._rows_neq(ent[3], host))[0])
@@ -699,8 +781,12 @@ class WaveScheduler:
                     continue
                 if host.ndim >= 1 and \
                         changed.size <= self.SCATTER_FRAC * host.shape[0]:
-                    rows = torch.from_numpy(changed).to(self.device)
-                    vals = place(host[changed], self.device)
+                    put = self._packer.ship(
+                        {"__rows__": changed,
+                         "__vals__": host[changed].astype(place_dt,
+                                                          copy=False)},
+                        narrowed={"__vals__"} if narrow else frozenset())
+                    rows, vals = put["__rows__"], put["__vals__"]
                     dev.index_copy_(0, rows, vals)
                     ent[3][changed] = host[changed]
                     out[f] = dev
@@ -712,12 +798,23 @@ class WaveScheduler:
                         0, self._nbytes(dev) - moved)
                     self._count("table_scatter")
                     continue
-            dev = place(host, self.device)
-            self._dev[f] = (host.shape, host.dtype, dev, host.copy())
-            out[f] = dev
-            st["table_ships"] += 1
-            st["wave_table_bytes"] += self._nbytes(dev)
-            st["table_bytes_total"] += self._nbytes(dev)
+            missing[f] = (host.astype(place_dt) if place_dt != host.dtype
+                          else host)
+            self._dev[f] = (host.shape, host.dtype, None, host.copy())
+        ship = dict(missing)
+        if extra:
+            ship.update(extra)
+        if ship:
+            put = self._packer.ship(ship, narrowed=frozenset(narrowed))
+            for f, dev in put.items():
+                out[f] = dev
+                if f not in missing:
+                    continue
+                ent = self._dev[f]
+                self._dev[f] = (ent[0], ent[1], dev, ent[3])
+                st["table_ships"] += 1
+                st["wave_table_bytes"] += self._nbytes(dev)
+                st["table_bytes_total"] += self._nbytes(dev)
         return out
 
     def _count(self, key: str, n: int = 1) -> None:
@@ -836,20 +933,21 @@ class WaveScheduler:
         self.dispatches = {}
         self.stats["waves"] += 1
         self.stats["wave_table_bytes"] = 0
+        res_host = np.stack([np.asarray(getattr(snap, f))
+                             for f in RES_CARRY_FIELDS])
         dev = self._to_dev_many(
             snap, tuple(BatchScheduler.STATIC_FIELDS) + self._CARRY_FIELDS,
-            keep)
+            keep, extra={"__res__": res_host,
+                         "__lidx__": np.int64(last_node_index)})
         static = {f: dev[f] for f in BatchScheduler.STATIC_FIELDS}
         static.update({k: place(v, self.device) for k, v in
                        BatchScheduler.config_static(self.config,
                                                     snap).items()})
         carry = {f: dev[f].clone() for f in self._CARRY_FIELDS}
-        carry["res"] = place(np.stack([np.asarray(getattr(snap, f))
-                                       for f in RES_CARRY_FIELDS]),
-                             self.device)
-        # selectHost's persistent round-robin counter
-        carry["last_idx"] = torch.tensor(int(last_node_index), dtype=I64,
-                                         device=self.device)
+        # the resource block and selectHost's persistent round-robin
+        # counter, shipped fresh with the tables every wave
+        carry["res"] = dev["__res__"]
+        carry["last_idx"] = dev["__lidx__"]
         carry = {k: carry[k] for k in CARRY_FIELDS}
         return static, carry, num_zones_of(snap), int(snap.svc_num_values)
 
@@ -911,7 +1009,6 @@ class WaveScheduler:
         driver without them."""
         static, carry, num_zones, num_values = self._wave_setup(
             snap, keep, source, last_node_index)
-        pods_dev = to_device(batch, self.device, BatchScheduler.POD_FIELDS)
         P = len(rep_idx)
         out = np.full(P, -1, np.int32)
         perm = np.asarray(snap.name_desc_order).astype(np.int64)
@@ -922,8 +1019,47 @@ class WaveScheduler:
                            self.device).to(torch.int32)
                      if zoned and self._device_zoned else None)
 
-        def pod_row(rep):
-            return {f: t[rep] for f, t in pods_dev.items()}
+        def pack_row(rep):
+            return pack_arrays({f: np.asarray(getattr(batch, f)[rep])
+                                for f in BatchScheduler.POD_FIELDS})
+
+        # -- double-buffered staging (KUBERNETES_TPU_PIPELINE): rep ->
+        # (layout, device buffer), packed and its upload started while an
+        # earlier run's probe was in flight; run_single takes the staged
+        # buffer instead of packing it then. The staged buffer holds the
+        # bytes the serial loop would have packed at its later point.
+        staged: dict = {}
+
+        def run_pod(rep):
+            """A run's pod row on the device: the staged buffer, or packed
+            and shipped now (one transfer)."""
+            ent = staged.pop(rep, None)
+            if ent is None:
+                layout, buf = pack_row(rep)
+                ent = (layout, self._packer.upload(buf))
+            return unpack(*ent)
+
+        def stage_from(j):
+            """Stage the next host-path single run at or after infos[j]
+            (called between a probe's dispatch and collect). Runs that
+            will group ship their own group buffer, so staging skips a
+            pure run whose successor would group with it."""
+            while j < len(infos):
+                nxt = infos[j]
+                if not nxt["eligible"] or nxt["device"]:
+                    j += 1
+                    continue
+                if (nxt["pure"] and j + 1 < len(infos)
+                        and infos[j + 1]["pure"]
+                        and not infos[j + 1]["device"]):
+                    return  # will take the grouped header-probe path
+                if nxt["rep"] not in staged:
+                    with phase_timer("encode"):
+                        self._count("stage")
+                        layout, buf = pack_row(nxt["rep"])
+                        staged[nxt["rep"]] = (layout,
+                                              self._packer.upload(buf))
+                return
 
         pending: List[int] = []
         # lastNodeIndex is tracked host-side (the replays compute it
@@ -948,25 +1084,31 @@ class WaveScheduler:
                 return carry
             carry = settle(carry)
             rows = np.asarray(pending, np.int64)
-            pods = to_device(gather_batch(batch, rep_idx[rows]), self.device,
-                             BatchScheduler.POD_FIELDS)
-            self._count("scan")
-            self._count("scan_pods", len(rows))
-            chosen = self.scan.run(static, carry, pods, num_zones,
-                                   num_values)
-            out[rows] = chosen.cpu().numpy()
-            L_host = int(carry["last_idx"])
+            seg = gather_batch(batch, rep_idx[rows])
+            pods = self._packer.ship({f: np.asarray(getattr(seg, f))
+                                      for f in BatchScheduler.POD_FIELDS})
+            # "score": the serial scan; the host reads force its work, so
+            # the timer covers compute, not just the enqueue
+            with phase_timer("score"):
+                self._count("scan")
+                self._count("scan_pods", len(rows))
+                chosen = self.scan.run(static, carry, pods, num_zones,
+                                       num_values)
+                out[rows] = chosen.cpu().numpy()
+                L_host = int(carry["last_idx"])
             pending.clear()
             return carry
 
-        def run_single(carry, info, done0=0):
+        def run_single(carry, info, done0=0, next_idx=None):
             """The per-run path: probe (carrying a deferred single fold)
             + host replay + deferred fold, or the single-run device
             replay; re-probing past the table horizon. A gang parks whole
-            when a member finds no node."""
+            when a member finds no node. Pipelined, the probe splits into
+            dispatch and collect, and the run at or after infos[next_idx]
+            stages its pod row in the gap."""
             nonlocal L_host
             rep, start, length = info["rep"], info["start"], info["length"]
-            pod = pod_row(rep)
+            pod = run_pod(rep)
             done = done0
             while done < length:
                 K = length - done
@@ -979,13 +1121,14 @@ class WaveScheduler:
                     else:  # a grouped fold: settle apart
                         carry = settle(carry)
                 if info["device"]:
-                    self._count("zreplay")
-                    carry, res = self._run_device_replay(
-                        static, carry, prev_pod, prev_counts, pod,
-                        num_zones, num_values, J, rows, K, zone_perm, perm,
-                        info["veto"], bool(batch.has_selectors[rep]),
-                        L_host,
-                    )
+                    with phase_timer("replay"):
+                        self._count("zreplay")
+                        carry, res = self._run_device_replay(
+                            static, carry, prev_pod, prev_counts, pod,
+                            num_zones, num_values, J, rows, K, zone_perm,
+                            perm, info["veto"],
+                            bool(batch.has_selectors[rep]), L_host,
+                        )
                     if res.n_done == 0:
                         pending.extend(range(start + done, start + length))
                         break
@@ -995,14 +1138,23 @@ class WaveScheduler:
                     L_host = res.last_node_index
                     done += res.n_done
                     continue
-                self._count("probe")
-                carry, tables = self.probe.probe_fused(
-                    static, carry, prev_pod, prev_counts, pod, num_zones,
-                    num_values, J, rows, self._apply_fn,
-                    has_selectors=bool(batch.has_selectors[rep]),
-                    zone_id=zone_arr, self_anti_veto=info["veto"],
-                    svc_ctx=info["svc_ctx"],
-                )
+                # ONE probe timer spans the device window; pipelined, the
+                # staging's encode timer nests inside it, so the trace
+                # accountant's overlap_totals attributes the hidden
+                # staging seconds to the probe
+                with phase_timer("probe"):
+                    self._count("probe")
+                    carry, raw = self.probe.probe_fused_dispatch(
+                        static, carry, prev_pod, prev_counts, pod,
+                        num_zones, num_values, J, self._apply_fn)
+                    if self.pipeline and next_idx is not None:
+                        stage_from(next_idx)
+                    tables = self.probe.probe_fused_collect(
+                        raw, num_zones, J, rows,
+                        has_selectors=bool(batch.has_selectors[rep]),
+                        zone_id=zone_arr, self_anti_veto=info["veto"],
+                        svc_ctx=info["svc_ctx"],
+                    )
                 if tables.sa_bail:
                     # ServiceAffinity dynamics the tables can't express
                     # (mid-run re-pin hazard): scan the rest of the run
@@ -1012,8 +1164,9 @@ class WaveScheduler:
                         info["gang"].get("score_add") is not None:
                     tables = gang_score_add(tables,
                                             info["gang"]["score_add"])
-                res: ReplayResult = self._replay(
-                    _permute_tables(tables, perm), K, L_host)
+                with phase_timer("replay"):
+                    res: ReplayResult = self._replay(
+                        _permute_tables(tables, perm), K, L_host)
                 if info["gang"] is not None and (
                         res.n_done == 0 or bool((res.chosen < 0).any())):
                     # all-or-nothing: park the gang. No member binds and
@@ -1040,29 +1193,39 @@ class WaveScheduler:
                 done += res.n_done
             return carry
 
+        def group_pods(group):
+            """A group's stacked pod rows on the device: group_buffer's
+            packed buffer in one transfer, unpacked there."""
+            _G_bucket, layout, buf = group_buffer(
+                batch, [g["rep"] for g in group])
+            return unpack(layout, self._packer.upload(buf))
+
         def run_group_host(carry, group):
             """Pure runs: ONE grouped header probe (carrying the deferred
             fold) + host replay of every run against the accumulating
             usage + ONE deferred grouped fold."""
             nonlocal L_host
             G = len(group)
-            G_bucket, gpods = group_buffer(pods_dev,
-                                           [g["rep"] for g in group])
+            gpods = group_pods(group)
             prev = fold.pop() if fold else None
-            self._count("group_probe")
-            carry, headers, usage = self.probe.probe_group(
-                static, carry, prev, gpods, G, num_zones, num_values,
-                self._apply_fn, self._apply_group_fn,
-            )
-            counts_mat, n_full, partial_done, L_host = host_group_replay(
-                self.config, snap, batch,
-                [(g["rep"], g["start"], g["length"]) for g in group],
-                headers[:G], usage, self._replay, perm, L_host, out, zoned,
-                self.max_j, num_zones,
-                gang_marks=[g["gang"] for g in group],
-            )
+            with phase_timer("probe"):
+                self._count("group_probe")
+                carry, headers, usage = self.probe.probe_group(
+                    static, carry, prev, gpods, G, num_zones, num_values,
+                    self._apply_fn, self._apply_group_fn,
+                )
+            with phase_timer("replay"):
+                counts_mat, n_full, partial_done, L_host = \
+                    host_group_replay(
+                        self.config, snap, batch,
+                        [(g["rep"], g["start"], g["length"])
+                         for g in group],
+                        headers[:G], usage, self._replay, perm, L_host,
+                        out, zoned, self.max_j, num_zones,
+                        gang_marks=[g["gang"] for g in group],
+                    )
             if counts_mat.any():
-                cm = np.zeros((G_bucket, N), np.int64)
+                cm = np.zeros((gpods["req_mcpu"].shape[0], N), np.int64)
                 cm[:G] = counts_mat
                 fold.append(("group", gpods, cm))
             if n_full == G:
@@ -1075,8 +1238,7 @@ class WaveScheduler:
             one device-to-host copy."""
             nonlocal L_host
             G = len(group)
-            _G_bucket, gpods = group_buffer(pods_dev,
-                                            [g["rep"] for g in group])
+            gpods = group_pods(group)
             maxlen = max(g["length"] for g in group)
             # floor 64 (not the single-run 256): the pick loop runs up to
             # K_bucket steps PER RUN
@@ -1094,12 +1256,13 @@ class WaveScheduler:
                 if g["veto"] is not None:
                     vetos[i] = np.asarray(g["veto"])[perm]
             prev = fold.pop() if fold else None
-            self._count("zreplay_group")
-            carry, chosen, n_done, L_host = self._zreplay.run_group(
-                static, carry, prev, gpods, G, num_zones, num_values, J_g,
-                K_bucket, zone_perm, place(vetos, self.device), has_sels,
-                rows_arr, k_reals, L_host,
-            )
+            with phase_timer("replay"):
+                self._count("zreplay_group")
+                carry, chosen, n_done, L_host = self._zreplay.run_group(
+                    static, carry, prev, gpods, G, num_zones, num_values,
+                    J_g, K_bucket, zone_perm, place(vetos, self.device),
+                    has_sels, rows_arr, k_reals, L_host,
+                )
             partial = None
             consumed = 0
             for i, g in enumerate(group):
@@ -1187,12 +1350,13 @@ class WaveScheduler:
                     carry, consumed, partial = run_group_host(carry, group)
                 if partial is not None:
                     g_idx, done = partial
-                    carry = run_single(carry, group[g_idx], done0=done)
+                    carry = run_single(carry, group[g_idx], done0=done,
+                                       next_idx=idx + g_idx + 1)
                     idx += g_idx + 1
                 else:
                     idx += consumed
                 continue
-            carry = run_single(carry, info)
+            carry = run_single(carry, info, next_idx=idx + 1)
             idx += 1
         carry = settle(carry)
         carry = flush(carry)

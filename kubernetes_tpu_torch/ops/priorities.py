@@ -18,6 +18,7 @@ from __future__ import annotations
 import torch
 
 from kubernetes_tpu_torch.ops.predicates import _requirement_matrix
+from kubernetes_tpu_torch.parallel.quant import narrow_matvec
 
 MAX_PRIORITY = 10
 F64 = torch.float64
@@ -37,8 +38,11 @@ def _matvec(table, vec):
 
 
 def taint_intolerable_counts(node_taint_count, pod_intolerable_prefer):
-    """i64[N] per-list intolerable-taint counts."""
-    return _matvec(node_taint_count, pod_intolerable_prefer)
+    """i64[N] per-list intolerable-taint counts. The node table may ride
+    a narrowed placement dtype (parallel/quant): the 0/1 pod indicator
+    casts down to it and the sum accumulates in int64, so the table is
+    never widened (quant.narrow_matvec)."""
+    return narrow_matvec(node_taint_count, pod_intolerable_prefer, I64)
 
 
 def _calculate_score(requested, capacity):
@@ -85,7 +89,7 @@ def selector_spread(
     pod_has_selectors,
     pod_spread_match,  # i64[C] 0/1
     class_count,  # i64[N, C]
-    zone_id,  # i64[N]
+    zone_id,  # int[N]: int64, or int8/int16 when narrowed (parallel/quant)
     num_zones,  # static int (vocab size incl. 0 == none)
     fit_mask,  # bool[N]
 ):
@@ -103,8 +107,12 @@ def selector_spread(
     # zone aggregation: zone 0 == "no zone" and never participates.
     # countsByZone exists for every zone seen among filtered nodes, so
     # haveZones == any filtered node is zoned.
+    # zone ids index below: torch takes an int64 index (it refuses int8
+    # and int16 ones, and reads a uint8 one as a mask), so a narrowed
+    # table is widened here, at the index sites only
+    zone_idx = zone_id.to(I64)
     zcounts = torch.zeros((num_zones,), dtype=I64, device=dev).index_add_(
-        0, zone_id, counts)
+        0, zone_idx, counts)
     have_zones = (fit_mask & (zone_id > 0)).any()
     zone_ids = torch.arange(num_zones, device=dev)
     max_zone = torch.where(zone_ids > 0, zcounts, 0).max().clamp(min=0)
@@ -112,7 +120,7 @@ def selector_spread(
     ten = torch.tensor(float(MAX_PRIORITY), dtype=F32, device=dev)
     ratio = (max_count - counts).to(F32) / max_count.to(F32)
     f = torch.where(max_count > 0, ten * ratio, ten)
-    node_zcount = zcounts[zone_id]
+    node_zcount = zcounts[zone_idx]
     # NO maxCountByZone>0 guard in the reference (selector_spreading.go
     # :224): 0/0 in float32 is NaN; Go's int(NaN) on amd64 is minInt64.
     # The NaN rides through the blend and is mapped at the conversion.

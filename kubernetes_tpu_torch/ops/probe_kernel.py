@@ -4,7 +4,11 @@ Replaces kubernetes_tpu/ops/pallas_probe.py (the Pallas `_kernel`,
 launched by `resource_probe`). For a run of J identical pods over N
 nodes it returns the fit frontier (i64[N], the number of commit depths
 j at which PodFitsResources still holds) and the weighted
-LeastRequested + BalancedAllocation j-table (i64[J, N]).
+LeastRequested + BalancedAllocation j-table (i64[J, N]). With bf16=True
+(the KUBERNETES_TPU_QUANT=bf16 profile, pallas_probe.py:95-104) the
+j-table is the ordered terms' bfloat16 sum instead: each weighted term
+rounded to bfloat16, added into a bfloat16 accumulator in declaration
+order, the result truncated through int32; the frontier is the same.
 
 - resource_probe: the wrapper. On CUDA tensors it launches the kernel
   of csrc/probe_kernel.cu (built with nvcc for sm_90a on first use, see
@@ -15,8 +19,9 @@ LeastRequested + BalancedAllocation j-table (i64[J, N]).
   against the JAX kernel; chip_smoke.py holds the kernel against it.
 - LAUNCHES counts kernel launches (incremented only where the kernel is
   launched), so a run can show that it went through the kernel;
-  LAUNCHES_BY_SHAPE counts them by (J, N). launch_grid(J, N) is the
-  grid the kernel takes at that shape.
+  LAUNCHES_BY_SHAPE counts them by (J, N, mode), mode "i64" or "bf16"
+  (the two modes are two kernels of csrc/probe_kernel.cu). launch_grid(J,
+  N) is the grid either takes at that shape.
 
 Bound on the card: bytes (J*N*8 written, ~10*N*8 read). The kernel
 spreads the (j, n) plane over the grid and sums the frontier across
@@ -44,8 +49,10 @@ POD_SCALARS = (
 
 #: kernel launches since the last reset (set to 0 to reset)
 LAUNCHES = 0
-#: kernel launches by (J, N) since the last reset (clear() to reset)
+#: kernel launches by (J, N, mode) since the last reset (clear() to reset)
 LAUNCHES_BY_SHAPE: dict = {}
+#: the bf16 mode's longest term list (csrc/probe_kernel.cu MAX_TERMS)
+MAX_TERMS = 8
 
 _LIB = None
 
@@ -64,8 +71,11 @@ def term_weights(terms: Sequence[Tuple[str, int]]) -> Tuple[int, int]:
 
 
 def resource_probe_plain(J: int, alloc, usage, pod, terms, *,
-                         wants_res: bool = True):
-    """-> (frontier i64[N], tab i64[J, N]) in plain torch ops."""
+                         wants_res: bool = True, bf16: bool = False):
+    """-> (frontier i64[N], tab i64[J, N]) in plain torch ops. bf16: each
+    weighted term .to(torch.bfloat16), summed in bfloat16 from 0 in
+    declaration order (one rounding per add, as torch rounds every
+    bfloat16 op), then int32 -> int64."""
     a_cpu, a_mem, a_gpu, a_pods = alloc
     u_cpu, u_mem, u_gpu, u_nzc, u_nzm, u_cnt = usage
     pv = pod_vector(pod)
@@ -87,7 +97,14 @@ def resource_probe_plain(J: int, alloc, usage, pod, terms, *,
     lr = R.least_requested(pv[7], pv[8], nzj_cpu, nzj_mem, a_cpu, a_mem)
     ba = R.balanced_resource_allocation(pv[7], pv[8], nzj_cpu, nzj_mem,
                                         a_cpu, a_mem)
-    return frontier, w_lr * lr + w_ba * ba
+    if not bf16:
+        return frontier, w_lr * lr + w_ba * ba
+    tab = torch.zeros((J,) + tuple(a_cpu.shape), dtype=torch.bfloat16,
+                      device=a_cpu.device)
+    for kind, w in terms:
+        tab = tab + (int(w) * (lr if kind == "lr" else ba)).to(
+            torch.bfloat16)
+    return frontier, tab.to(torch.int32).to(I64)
 
 
 def load(path: str) -> ctypes.CDLL:
@@ -98,6 +115,16 @@ def load(path: str) -> ctypes.CDLL:
     fn.argtypes = ([ctypes.c_void_p] * 13
                    + [ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
                       ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p])
+    # an earlier source timed against this one (chip_smoke.py --baseline)
+    # may have no bf16 mode
+    if hasattr(lib, "resource_probe_bf16_launch"):
+        fn = lib.resource_probe_bf16_launch
+        fn.restype = ctypes.c_int
+        fn.argtypes = ([ctypes.c_void_p] * 13
+                       + [ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                          ctypes.POINTER(ctypes.c_int),
+                          ctypes.POINTER(ctypes.c_longlong), ctypes.c_int,
+                          ctypes.c_void_p])
     return lib
 
 
@@ -141,19 +168,25 @@ def _check(name: str, t: torch.Tensor, shape, device) -> None:
             f"{t.device}")
 
 
-def _launch(J: int, alloc, usage, pv, w_lr: int, w_ba: int,
-            wants_res: bool, lib=None):
-    """Launch the kernel (of `lib`, a library from load(); this
-    checkout's by default)."""
-    global LAUNCHES
+def _outputs(J: int, alloc, usage, pv):
+    """Check one launch's inputs -> (zeroed frontier, tab) on their
+    device: the kernel adds each block's fit count into the frontier."""
     device = pv.device
     N = alloc[0].shape[0]
     _check("pod vector", pv, (len(POD_SCALARS),), device)
     for i, t in enumerate(tuple(alloc) + tuple(usage)):
         _check(f"node table {i}", t, (N,), device)
-    # the kernel adds each block's fit count into the frontier
-    frontier = torch.zeros((N,), dtype=I64, device=device)
-    tab = torch.empty((J, N), dtype=I64, device=device)
+    return (torch.zeros((N,), dtype=I64, device=device),
+            torch.empty((J, N), dtype=I64, device=device))
+
+
+def _launch(J: int, alloc, usage, pv, w_lr: int, w_ba: int,
+            wants_res: bool, lib=None):
+    """Launch the kernel (of `lib`, a library from load(); this
+    checkout's by default)."""
+    device = pv.device
+    N = alloc[0].shape[0]
+    frontier, tab = _outputs(J, alloc, usage, pv)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = (lib or _lib()).resource_probe_launch(
@@ -164,26 +197,63 @@ def _launch(J: int, alloc, usage, pv, w_lr: int, w_ba: int,
     if err != 0:
         raise RuntimeError(f"resource_probe kernel launch failed: CUDA "
                            f"error {err}")
+    _counted(J, N, "i64")
+    return frontier, tab
+
+
+def _counted(J: int, N: int, mode: str) -> None:
+    global LAUNCHES
     LAUNCHES += 1
-    LAUNCHES_BY_SHAPE[(J, N)] = LAUNCHES_BY_SHAPE.get((J, N), 0) + 1
+    LAUNCHES_BY_SHAPE[(J, N, mode)] = LAUNCHES_BY_SHAPE.get((J, N, mode),
+                                                            0) + 1
+
+
+def _launch_bf16(J: int, alloc, usage, pv, terms, wants_res: bool,
+                 lib=None):
+    """Launch the bf16 mode's kernel on the ordered term list (of
+    `lib`, this checkout's by default)."""
+    device = pv.device
+    N = alloc[0].shape[0]
+    if len(terms) > MAX_TERMS:
+        raise ValueError(f"resource_probe: the bf16 mode takes at most "
+                         f"{MAX_TERMS} terms, got {len(terms)}")
+    frontier, tab = _outputs(J, alloc, usage, pv)
+    kinds = (ctypes.c_int * MAX_TERMS)(
+        *(int(kind == "ba") for kind, _w in terms))
+    weights = (ctypes.c_longlong * MAX_TERMS)(*(int(w) for _k, w in terms))
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = (lib or _lib()).resource_probe_bf16_launch(
+            pv.data_ptr(), *(t.data_ptr() for t in alloc),
+            *(t.data_ptr() for t in usage), frontier.data_ptr(),
+            tab.data_ptr(), int(J), int(N), len(terms), kinds, weights,
+            int(bool(wants_res)), stream)
+    if err != 0:
+        raise RuntimeError(f"resource_probe bf16 kernel launch failed: "
+                           f"CUDA error {err}")
+    _counted(J, N, "bf16")
     return frontier, tab
 
 
 def resource_probe(J: int, alloc, usage, pod, terms, *,
-                   wants_res: bool = True):
+                   wants_res: bool = True, bf16: bool = False):
     """-> (frontier i64[N], tab i64[J, N]) for a run-of-identical probe.
 
     alloc: (alloc_mcpu, alloc_mem, alloc_gpu, alloc_pods) node tables;
     usage: the carry's (req_mcpu, req_mem, req_gpu, nz_mcpu, nz_mem,
     pod_count) resource rows; pod: the pod dict (the POD_SCALARS are
     read); terms: (("lr"|"ba", weight), ...), the config's LR/BA
-    priorities. CUDA tensors launch the kernel; CPU tensors run the plain
-    version; any other device raises."""
+    priorities in declaration order (the order is the bf16 mode's
+    rounding order). CUDA tensors launch the kernel of the mode; CPU
+    tensors run the plain version; any other device raises."""
     device = alloc[0].device
     if device.type == "cpu":
         return resource_probe_plain(J, alloc, usage, pod, terms,
-                                    wants_res=wants_res)
+                                    wants_res=wants_res, bf16=bf16)
     if device.type != "cuda":
         raise ValueError(f"resource_probe: no kernel for device {device}")
+    if bf16:
+        return _launch_bf16(J, alloc, usage, pod_vector(pod), tuple(terms),
+                            wants_res)
     w_lr, w_ba = term_weights(terms)
     return _launch(J, alloc, usage, pod_vector(pod), w_lr, w_ba, wants_res)

@@ -11,6 +11,7 @@ from __future__ import annotations
 import torch
 
 from kubernetes_tpu_torch.ops.bitset import popcount
+from kubernetes_tpu_torch.parallel.quant import narrow_eq
 
 
 def _intersects(a, b):
@@ -50,10 +51,13 @@ def max_pd_count(pod_mask, pod_bad, pod_has_new, node_mask, node_bad,
 def volume_zone(pod_zone, pod_region, pod_fail, node_zone, node_region,
                 node_has):
     """predicates.go:271 VolumeZoneChecker -> bool (N,). Nodes without any
-    zone/region label always pass (constraints empty)."""
+    zone/region label always pass (constraints empty). node_zone and
+    node_region may ride a narrowed dtype (parallel/quant): the pod's
+    value casts down behind a range guard (quant.narrow_eq), as in
+    kubernetes_tpu/ops/volumes.py _narrow_eq."""
     match = (
         ~pod_fail
-        & ((pod_zone < 0) | (node_zone == pod_zone))
-        & ((pod_region < 0) | (node_region == pod_region))
+        & ((pod_zone < 0) | narrow_eq(node_zone, pod_zone))
+        & ((pod_region < 0) | narrow_eq(node_region, pod_region))
     )
     return ~node_has | match

@@ -25,7 +25,9 @@ the commit; it stops after the pick whose node reaches rows_dyn commits.
 Inputs (all of length N, permuted): fit_static u8, frontier i64 (already
 vetoed: min(frontier, 1) where the self-anti veto holds), static_add,
 spread_base, na_counts, tt_counts, ip_totals, nz_cpu0, nz_mem0,
-alloc_cpu, alloc_mem (i64), zone_id (i32, 0 <= id < num_zones), and
+alloc_cpu, alloc_mem (i64), zone_id (i32, 0 <= id < num_zones; the
+wrapper widens an int8 or int16 one, a table that parallel/quant
+narrowed, to the kernel's int32), and
 `scalars` i64[5] (SCALARS: the pod's nonzero cpu and memory requests,
 the spread self-match flag, the round-robin counter L0 and the active
 flag), read by the kernel from device memory so that a group of runs
@@ -296,4 +298,7 @@ def replay_picks(nodes: dict, scalars: torch.Tensor, weights: dict, *,
         return replay_picks_plain(nodes, scalars, weights, **kw)
     if device.type != "cuda":
         raise ValueError(f"replay_picks: no kernel for device {device}")
+    if nodes["zone_id"].dtype in (torch.int8, torch.int16):
+        # a narrowed zone table: widened explicitly to the kernel's dtype
+        nodes = dict(nodes, zone_id=nodes["zone_id"].to(torch.int32))
     return _launch(nodes, scalars, weights, **kw)

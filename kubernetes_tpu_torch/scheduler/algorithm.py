@@ -18,9 +18,16 @@ in the JAX package. warmup() builds the kernels and runs synthetic
 backlogs before the first real wave; _sched_lock serializes it against
 real waves.
 
+The bf16 j-table profile (KUBERNETES_TPU_QUANT=bf16, parallel/quant) is
+a declared approximation, shadow-checked as in the JAX package: a
+ShadowGate samples waves (every KUBERNETES_TPU_QUANT_SHADOW-th, the first
+always), each sampled wave runs again on a full-width shadow
+WaveScheduler(quant_mode="off") from the same round-robin counter, and a
+divergence counts scheduler_quant_shadow_divergence_total, takes the
+shadow's picks and sends every later wave to the shadow.
+
 Left out, with the items of ROADMAP.md queue 1 that bring them: the
-mesh driver (item 5), the optimizing profile (item 4) and the bf16
-shadow gate (item 3).
+mesh driver (item 5) and the optimizing profile (item 4).
 
 It runs on CUDA unless the caller passes device="cpu"; on a host without
 CUDA the default raises instead of carrying on on the CPU.
@@ -28,6 +35,7 @@ CUDA the default raises instead of carrying on on the CPU.
 
 from __future__ import annotations
 
+import logging
 import threading
 from typing import List, Optional, Sequence
 
@@ -46,6 +54,7 @@ from kubernetes_tpu_torch.api.types import (
 from kubernetes_tpu_torch.models.wave import WaveScheduler
 from kubernetes_tpu_torch.oracle.scheduler import FitError
 from kubernetes_tpu_torch.oracle.state import ClusterState
+from kubernetes_tpu_torch.parallel import quant
 from kubernetes_tpu_torch.snapshot.encode import (
     SnapshotEncoder,
     pod_feature_key,
@@ -53,6 +62,8 @@ from kubernetes_tpu_torch.snapshot.encode import (
 from kubernetes_tpu_torch.snapshot.incremental import IncrementalEncoder
 from kubernetes_tpu_torch.snapshot.pad import next_pow2, pad_snapshot
 from kubernetes_tpu_torch.trace import profile as trace_profile
+
+log = logging.getLogger(__name__)
 
 
 def _listed(lister) -> list:
@@ -79,6 +90,18 @@ class TorchScheduleAlgorithm:
         # the wave driver, exposed as TPUScheduleAlgorithm exposes its own
         self._wave = WaveScheduler(config=config, min_run=min_run,
                                    device=self.device, replay=replay)
+        self._shadow_gate = None
+        self._shadow_wave = None
+        if quant.score_mode(self._wave._quant_mode) == "bf16":
+            # the bf16 j-table profile is a DECLARED approximation:
+            # sampled waves re-run on a full-width shadow driver and any
+            # decision divergence increments the metric and permanently
+            # falls the algorithm back to full width (parallel/quant
+            # ShadowGate)
+            self._shadow_gate = quant.ShadowGate()
+            self._shadow_wave = WaveScheduler(
+                config=config, min_run=min_run, device=self.device,
+                replay=replay, quant_mode="off")
         self._inc = None
         self._service_lister = service_lister
         self._controller_lister = controller_lister
@@ -229,10 +252,38 @@ class TorchScheduleAlgorithm:
         if snap.num_nodes == 0:
             # empty cluster: every pod fails with FitError
             return [None] * len(pods)
-        chosen, _final, last = self._wave.schedule_backlog(
+        gang_rows = wave_gangs(gangs, snap.node_names)
+        driver = self._wave
+        if self._shadow_gate is not None and self._shadow_gate.fallen_back:
+            # a shadow-compare divergence already proved the bf16
+            # profile unsound for this workload: full width from here on
+            driver = self._shadow_wave
+        saved_last = self._last_node_index
+        chosen, _final, last = driver.schedule_backlog(
             snap, batch, rep_idx, last_node_index=self._last_node_index,
-            keep=keep, source=source,
-            gangs=wave_gangs(gangs, snap.node_names))
+            keep=keep, source=source, gangs=gang_rows)
+        if (self._shadow_gate is not None and driver is self._wave
+                and self._shadow_gate.should_check()):
+            # full-width re-run from the same round-robin counter; the
+            # shadow driver's own mirrors content-compare the view, so
+            # keep stays empty (its last sighting may be waves old)
+            s_chosen, _sf, s_last = self._shadow_wave.schedule_backlog(
+                snap, batch, rep_idx, last_node_index=saved_last,
+                keep=frozenset(), source=source, gangs=gang_rows)
+            matched = np.array_equal(np.asarray(chosen),
+                                     np.asarray(s_chosen))
+            self._shadow_gate.record(matched)
+            if not matched:
+                from kubernetes_tpu_torch.metrics import (
+                    scheduler_quant_shadow_divergence_total,
+                )
+
+                scheduler_quant_shadow_divergence_total.inc()
+                log.warning(
+                    "bf16 quantized profile diverged from full width "
+                    "(wave of %d pods); falling back to full width",
+                    len(pods))
+                chosen, last = s_chosen, s_last
         self._last_node_index = last
         names = snap.node_names
         return [

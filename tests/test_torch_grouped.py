@@ -22,6 +22,7 @@ from kubernetes_tpu.snapshot.encode import SnapshotEncoder
 
 import kubernetes_tpu_torch.api.types as TT
 from kubernetes_tpu_torch.harness import scenarios as S
+from kubernetes_tpu_torch.models import pack as TPK
 from kubernetes_tpu_torch.models import wave as TW
 from kubernetes_tpu_torch.models.batch import BatchScheduler
 from kubernetes_tpu_torch.models.batch import SchedulerConfig
@@ -34,7 +35,6 @@ from kubernetes_tpu_torch.scheduler.algorithm import TorchScheduleAlgorithm
 from kubernetes_tpu_torch.snapshot.carry import (
     batch_from_arrays,
     snapshot_from_arrays,
-    to_device,
 )
 from kubernetes_tpu_torch.snapshot.encode import pod_feature_key
 from kubernetes_tpu_torch.snapshot.pad import next_pow2
@@ -221,10 +221,11 @@ def test_grouped_device_horizon_resume():
 
 
 def test_group_buffer_rows_match_the_packed_buffer():
-    """The recorded deviation: the port's group_buffer gathers placed pod
-    rows where the JAX package packs a uint8 buffer; both pad to the same
-    pow2 bucket by repeating the last representative, so the rows agree
-    field by field."""
+    """group_buffer is the JAX contract: one packed uint8 buffer of the
+    group's rows, padded to the same pow2 bucket by repeating the last
+    representative. The port's layout and bytes equal the JAX package's,
+    and the port's device unpack gives the JAX unpack's rows field by
+    field (widened to int64 by the port's placement rule)."""
     state = JaxState.build(S.density_nodes(JT, 4))
     pods = S.template_pods(JT, 5, 1)
     enc = SnapshotEncoder(state, pods)
@@ -232,10 +233,11 @@ def test_group_buffer_rows_match_the_packed_buffer():
     reps = [3, 0, 4]
     G, layout, buf = JW.group_buffer(batch, reps)
     jrows = JPK.unpack(layout, buf)
-    pods_dev = to_device(batch_from_arrays(fields_of(batch)), "cpu",
-                         BatchScheduler.POD_FIELDS)
-    G2, trows = TW.group_buffer(pods_dev, reps)
+    G2, tlayout, tbuf = TW.group_buffer(
+        batch_from_arrays(fields_of(batch)), reps)
     assert G2 == G == 8
+    assert tlayout == layout and np.array_equal(tbuf, buf)
+    trows = TPK.unpack(tlayout, torch.from_numpy(tbuf))
     for f in BatchScheduler.POD_FIELDS:
         assert np.array_equal(np.asarray(jrows[f]).astype(np.int64),
                               trows[f].numpy().astype(np.int64)), f

@@ -6,9 +6,12 @@ call on the CPU and the port's oracle copy; a gang director cycle with
 preemption on CUDA against the same cycle on the CPU; and the daemon's
 scheduling core (cache, incremental encoder, resident tables,
 core.Scheduler), with and without gangs, against the same flow on the
-CPU; and the daemon on the wire (the port's apiserver, informers and
+CPU; the daemon on the wire (the port's apiserver, informers and
 SchedulerServer through harness/perf.schedule_pods) against the same run
-on the CPU. Each test skips where there is no CUDA device.
+on the CPU; K1's bf16 mode against its plain version; and the
+kernel-path profiles (narrowed tables, the pipeline, the bf16 profile
+with its shadow) on the card against the same calls on the CPU. Each
+test skips where there is no CUDA device.
 
 This module imports only torch and the port, so it also runs on a
 machine without JAX:
@@ -52,15 +55,45 @@ def test_kernel_matches_plain_on_card(case, cuda_device):
     alloc, usage = tuple(map(put, alloc)), tuple(map(put, usage))
     pod = {k: put(v) for k, v in pod.items()}
     launches = PK.LAUNCHES
-    by_shape = PK.LAUNCHES_BY_SHAPE.get((J, N), 0)
+    by_shape = PK.LAUNCHES_BY_SHAPE.get((J, N, "i64"), 0)
     fr, tab = PK.resource_probe(J, alloc, usage, pod, TERMS,
                                 wants_res=wants_res)
     assert PK.LAUNCHES == launches + 1
-    assert PK.LAUNCHES_BY_SHAPE[(J, N)] == by_shape + 1
+    assert PK.LAUNCHES_BY_SHAPE[(J, N, "i64")] == by_shape + 1
     fr_p, tab_p = PK.resource_probe_plain(J, alloc, usage, pod, TERMS,
                                           wants_res=wants_res)
     torch.cuda.synchronize()
     assert torch.equal(fr, fr_p) and torch.equal(tab, tab_p), label
+
+
+@pytest.mark.parametrize("case", S.PROBE_CASES,
+                         ids=[c[0] for c in S.PROBE_CASES])
+def test_bf16_kernel_matches_plain_on_card(case, cuda_device):
+    """K1's bf16 mode on every probe case and term list (the default
+    profile, and two past bfloat16's exact integers): frontier and
+    j-table equal to the plain version's bf16 computation, each launch
+    counted under (J, N, "bf16")."""
+    label, J, N, opts = case
+    opts = dict(opts)
+    wants_res = opts.pop("wants_res", True)
+    alloc, usage, pod = S.probe_case(N, 3, **opts)
+
+    def put(a):
+        return torch.tensor(a, dtype=torch.int64, device=cuda_device)
+
+    alloc, usage = tuple(map(put, alloc)), tuple(map(put, usage))
+    pod = {k: put(v) for k, v in pod.items()}
+    for name, terms in S.BF16_TERM_LISTS:
+        by_shape = PK.LAUNCHES_BY_SHAPE.get((J, N, "bf16"), 0)
+        fr, tab = PK.resource_probe(J, alloc, usage, pod, terms,
+                                    wants_res=wants_res, bf16=True)
+        assert PK.LAUNCHES_BY_SHAPE[(J, N, "bf16")] == by_shape + 1
+        fr_p, tab_p = PK.resource_probe_plain(J, alloc, usage, pod, terms,
+                                              wants_res=wants_res,
+                                              bf16=True)
+        torch.cuda.synchronize()
+        assert torch.equal(fr, fr_p) and torch.equal(tab, tab_p), (label,
+                                                                   name)
 
 
 def test_launch_grid_covers_the_plane(cuda_device):
@@ -377,3 +410,38 @@ def test_wire_daemon_on_card_matches_cpu(cuda_device):
         S.pause_pods(T, 1000), ClusterState.build(nodes))
     # harness nodes are named node-00000.., the scenario's node-0000..
     assert [h.replace("node-", "node-0") for h in one] == order
+
+
+def test_kernel_path_profiles_on_card_match_cpu(cuda_device, monkeypatch):
+    """The multi-template backlog (every run impure: the per-run probe)
+    under the narrowed tables with the pipeline on, and under the bf16
+    profile with its shadow checking every wave, on the card: names
+    equal to the same call on the CPU (the serial oracle takes minutes
+    on this backlog's inter-pod terms; tests/test_torch_pipeline.py holds
+    the CPU run to it on smaller backlogs of the same scenario), the
+    pipeline staged, narrowed tables on the device, K1 launched in both
+    modes."""
+    nodes, services, pods = S.multi_template_backlog(T, 40, 600,
+                                                     templates=4, block=60)
+    state = ClusterState.build(nodes, services=services)
+    monkeypatch.setenv("KUBERNETES_TPU_QUANT", "int")
+    monkeypatch.setenv("KUBERNETES_TPU_PIPELINE", "1")
+    want = TorchScheduleAlgorithm(device="cpu").schedule_backlog(
+        pods, state.clone())
+    k1 = PK.LAUNCHES
+    algo = TorchScheduleAlgorithm(device=cuda_device)
+    got = algo.schedule_backlog(pods, state.clone())
+    assert PK.LAUNCHES > k1
+    assert algo._wave.dispatches.get("stage", 0) > 0
+    assert algo._wave._dev["zone_id"][2].dtype == torch.int8
+    assert got == want
+    monkeypatch.setenv("KUBERNETES_TPU_QUANT", "bf16")
+    monkeypatch.setenv("KUBERNETES_TPU_QUANT_SHADOW", "1")
+    bf16 = sum(v for k, v in PK.LAUNCHES_BY_SHAPE.items() if k[2] == "bf16")
+    algo = TorchScheduleAlgorithm(device=cuda_device)
+    got = algo.schedule_backlog(pods, state.clone())
+    assert sum(v for k, v in PK.LAUNCHES_BY_SHAPE.items()
+               if k[2] == "bf16") > bf16
+    assert algo._shadow_gate.checked == 1
+    assert algo._shadow_gate.divergence == 0
+    assert got == want
