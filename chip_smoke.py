@@ -1,6 +1,7 @@
 """Drive the PyTorch/CUDA port on one NVIDIA GPU and check it end to end.
 
     python3 chip_smoke.py [--baseline OLD.cu] [--baseline-k3 OLD.cu]
+                          [--baseline-k6 OLD.cu]
 
 Phases, each printing one JSON line; any failure raises and exits
 non-zero:
@@ -8,10 +9,12 @@ non-zero:
      reports them;
   2. build: the CUDA kernels (csrc/probe_kernel.cu, K1; csrc/
      zreplay_kernel.cu, K3, one report per template instance; csrc/
-     preempt_kernel.cu, K6; csrc/chain_floor.cu, K3's yardstick) built
+     preempt_kernel.cu, K6, one report per template instance; csrc/
+     chain_floor.cu, K3's yardstick) built
      with nvcc for sm_90a from the
      sources in this checkout, in parallel, with ptxas's registers, spills
-     and shared memory for each;
+     and shared memory for each and, for K6, its static SASS counts
+     (native/build.sass_counts: instructions, shuffles, barriers);
   3. kernel vs plain: ops/probe_kernel.resource_probe (K1) on the card
      against its plain torch version, exact equality, at the main path's
      shapes and on edge inputs (scenarios.PROBE_CASES, J=1 included),
@@ -43,11 +46,19 @@ non-zero:
      victim_score_plain, exact equality of needed, cost and order, on
      scenarios.VICTIM_CASES (every slot invalid, fits now, fits only
      after evicting every candidate, no node fits, negative priorities,
-     ties, C = 8, 32, 128, 1,024, and the gang phase's own (8,192, 32),
-     as the director builds it and as a fuzz), with the kernel's device
-     time (profiler, every launch of the trace accounted for), the bound
+     ties, C = 8, 32, 128, 1,024, the gang phase's own (8,192, 32), as
+     the director builds it and as a fuzz, the director's table at C = 8,
+     a fuzz at (8,192, 128) and a part-filled last block) and on the row
+     tails (scenarios.VICTIM_TAILS, equality only), with each case's
+     path (segment or block) and rows a block, the kernel's device time
+     (profiler, every launch of the trace accounted for) with its inputs
+     warm in L2 and, apart, with L2 flushed before each launch, the bound
      from the case's own candidates and its share, and the plain
-     version's time;
+     version's time; with --baseline-k6, also the scorer built from
+     OLD.cu (the same C interface, e.g. an earlier version) against this
+     checkout's, device times in turns (old, new, new, old), its
+     max_abs_err against the plain version and both ptxas and SASS
+     reports, on every case;
   4. main path: the scheduler_perf density shape at the north-star size
      (5,000 nodes of 4 CPU / 32Gi / 110 pods, 50,000 pause pods of
      100m / 500Mi) through TorchScheduleAlgorithm on the card; every pod
@@ -763,47 +774,128 @@ def victim_bound_ms(prio, gang_prio) -> tuple:
                                        else "operations")
 
 
-def phase_k6(VK, S, P):
+def k6_report(lib, kernel) -> dict:
+    """ptxas's report of one K6 kernel of lib, with its static SASS counts
+    (native/build.sass_counts) under "sass"."""
+    from kubernetes_tpu_torch.native.build import ptxas_report, sass_counts
+
+    return {**ptxas_report(lib, kernel), "sass": sass_counts(lib, kernel)}
+
+
+def k6_reports(lib) -> dict:
+    """k6_report of each template instance of K6: the segment path at
+    W = C <= 32, the block path at C = 64..1,024."""
+    return {**{f"segment C={w}": k6_report(
+                   lib, f"victim_score_kernel_segILi{w}E")
+               for w in (1, 2, 4, 8, 16, 32)},
+            **{f"block C={c}": k6_report(
+                   lib, f"victim_score_kernel_blkILi{c}E")
+               for c in (64, 128, 256, 512, 1024)}}
+
+
+#: the per-case keys of K6's entry in the kernels line
+K6_CASE_KEYS = ("N", "C", "path", "rows_per_block", "ms", "cold_ms",
+                "baseline_ms", "baseline_cold_ms", "speedup", "bound_ms",
+                "bound_by", "bound_share", "cold_bound_share", "plain_ms")
+
+#: bytes written before a cold launch: twice the H100's 50 MB L2
+L2_FLUSH_BYTES = 100 << 20
+
+
+def phase_k6(VK, S, P, ptxas, old=None):
     """K6 against victim_score_plain on every scenarios.VICTIM_CASES entry,
     exact equality of needed, cost and order, with the kernel's device
-    time (profiler; and, as a cross-check, CUDA events around launches
-    queued behind a device sleep, gaps included), the plain version's
-    (CUDA events), the bound and its share. -> ({label: row},
-    max_abs_err)."""
+    time (profiler) with its inputs warm in L2 (launched back to back)
+    and cold (L2_FLUSH_BYTES written before each launch), CUDA events
+    around launches queued behind a device sleep (gaps included) as a
+    cross-check, the plain version's time (CUDA events), the bound and
+    its share; and on every scenarios.VICTIM_TAILS shape, equality only.
+    ptxas: k6_reports of this checkout's library. old: (library, its
+    k6_report) of a baseline K6, also held to the plain version and
+    timed in turns old, new, new, old. -> ({label: row}, max_abs_err)."""
     results, max_err = {}, 0
-    for seed, (label, N, C, kind) in enumerate(S.VICTIM_CASES):
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+
+    def inputs(N, C, seed, kind):
         c = S.victim_case(N, C, seed, kind)
-        args = [torch.as_tensor(c[k]).cuda()
-                for k in ("prio", "ord", "res", "free", "req")]
-        gp = c["gang_prio"]
+        return [torch.as_tensor(c[k]).cuda()
+                for k in ("prio", "ord", "res", "free", "req")], \
+            c["gang_prio"]
+
+    def err_of(got, want):
+        return max(int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
+                   for a, b in zip(got, want))
+
+    def same(got, want):
+        return all(a.dtype == b.dtype and torch.equal(a, b)
+                   for a, b in zip(got, want))
+
+    for seed, (label, N, C, kind) in enumerate(S.VICTIM_CASES):
+        args, gp = inputs(N, C, seed, kind)
         got = VK.victim_score(*args, gp)
         want = P.victim_score_plain(*args, gp)
         torch.cuda.synchronize()
-        equal = all(a.dtype == b.dtype and torch.equal(a, b)
-                    for a, b in zip(got, want))
-        err = max(int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
-                  for a, b in zip(got, want))
+        equal = same(got, want)
+        err = err_of(got, want)
         max_err = max(max_err, err)
-        ms, _, traces = kernel_device_ms(lambda: VK._launch(*args, gp),
-                                         "victim_score_kernel")
+        libs = {"new": None}
+        if old:
+            libs["old"] = old[0]
+        turns = ("old", "new", "new", "old") if old else ("new",)
+        warm, traces = {"old": [], "new": []}, []
+        for which in turns:
+            ms, _, seen = kernel_device_ms(
+                lambda lib=libs[which]: VK._launch(*args, gp, lib=lib),
+                "victim_score_kernel")
+            warm[which].append(ms)
+            traces.append(seen)
+        cold = {which: kernel_device_ms(
+            lambda lib=lib: (flush.zero_(), VK._launch(*args, gp, lib=lib)),
+            "victim_score_kernel")[0] for which, lib in libs.items()}
         events_ms = queued_ms(lambda: VK._launch(*args, gp), reps=7,
                               inner=10)
         plain_ms = cuda_ms(lambda: P.victim_score_plain(*args, gp), reps=7,
                            inner=3)
         bound_ms, bound_by = victim_bound_ms(args[0], gp)
-        row = dict(ms=ms, traces=traces, events_ms=events_ms,
-                   plain_ms=plain_ms,
-                   bound_ms=bound_ms, bound_by=bound_by,
-                   bound_share=bound_ms / ms)
+        ms = statistics.mean(warm["new"])
+        lay = VK.layout(C)
+        kernel = (f"segment C={C}" if lay["path"] == "segment"
+                  else f"block C={C}")
+        row = dict(N=N, C=C, path=lay["path"], rows_per_block=lay["rows"],
+                   threads=lay["threads"], ms=ms, new_ms=warm["new"],
+                   traces=traces, cold_ms=cold["new"], events_ms=events_ms,
+                   plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                   bound_share=bound_ms / ms,
+                   cold_bound_share=bound_ms / cold["new"],
+                   ptxas=ptxas[kernel])
+        if old:
+            old_out = VK._launch(*args, gp, lib=old[0])
+            torch.cuda.synchronize()
+            old_ms = statistics.mean(warm["old"])
+            row.update(baseline_ms=old_ms, old_ms=warm["old"],
+                       baseline_cold_ms=cold["old"], speedup=old_ms / ms,
+                       old_max_abs_err=err_of(old_out, want),
+                       old_bound_share=bound_ms / old_ms,
+                       old_ptxas=old[1])
         results[label] = row
         needed = got[0].cpu()
-        emit("k6_vs_plain", case=label, N=N, C=C, kind=kind, equal=equal,
+        emit("k6_vs_plain", case=label, kind=kind, equal=equal,
              max_abs_err=err, library_call="none",
              needed_counts={str(k): v for k, v in zip(
                  *(x.tolist() for x in torch.unique(
                      needed, return_counts=True)))}, **row)
         if not equal:
             raise AssertionError(f"K6 != plain on {label}")
+    for N, C in S.VICTIM_TAILS:
+        args, gp = inputs(N, C, N + C, "fuzz")
+        got = VK.victim_score(*args, gp)
+        want = P.victim_score_plain(*args, gp)
+        torch.cuda.synchronize()
+        equal = same(got, want)
+        emit("k6_tail_vs_plain", N=N, C=C, equal=equal,
+             max_abs_err=err_of(got, want), **VK.layout(C))
+        if not equal:
+            raise AssertionError(f"K6 != plain on the tail N={N} C={C}")
     return results, max_err
 
 
@@ -2248,6 +2340,9 @@ def main() -> int:
     ap.add_argument("--baseline-k3", metavar="OLD.cu",
                     help="also time the pick loop (K3) built from this "
                     "source against this checkout's")
+    ap.add_argument("--baseline-k6", metavar="OLD.cu",
+                    help="also time the victim scorer (K6) built from this "
+                    "source against this checkout's")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2291,15 +2386,20 @@ def run(args, jobs) -> int:
     # one nvcc per kernel source, all started together
     builds = [PK.build, ZK.build, VK.build,
               lambda: build_cuda("chain_floor")]
-    if args.baseline_k3:
-        builds.append(lambda: build_cuda_file(
-            os.path.abspath(args.baseline_k3), "zreplay_kernel_baseline"))
+    baselines = [(flag, src, name) for flag, src, name in (
+        ("k3", args.baseline_k3, "zreplay_kernel_baseline"),
+        ("k6", args.baseline_k6, "preempt_kernel_baseline")) if src]
+    for _flag, src, name in baselines:
+        builds.append(lambda src=src, name=name: build_cuda_file(
+            os.path.abspath(src), name))
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(builds)) as pool:
-        k1_lib, k3_lib, k6_lib, chain_lib, *old_k3 = pool.map(
+        k1_lib, k3_lib, k6_lib, chain_lib, *old_libs = pool.map(
             lambda f: f(), builds)
+    old_paths = {flag: path for (flag, _s, _n), path in zip(baselines,
+                                                             old_libs)}
     k3_ptxas = k3_reports(k3_lib)
-    k6_ptxas = ptxas_report(k6_lib, "victim_score_kernel")
+    k6_ptxas = k6_reports(k6_lib)
     emit("build", kernels=["resource_probe", "zreplay", "victim_score",
                            "chain_floor"],
          seconds=time.perf_counter() - t0,
@@ -2321,13 +2421,19 @@ def run(args, jobs) -> int:
         phase_baseline(PK, S, args.baseline)
     chain_us = phase_chain_floor(chain_lib)
     old_lib = None
-    if old_k3:
-        old_lib = ZK.load(old_k3[0])
+    if "k3" in old_paths:
+        old_lib = ZK.load(old_paths["k3"])
         emit("baseline_k3_build", source=args.baseline_k3,
-             ptxas=ptxas_report(old_k3[0], "zreplay_kernel"),
+             ptxas=ptxas_report(old_paths["k3"], "zreplay_kernel"),
              new_ptxas=k3_ptxas)
     k3_times, k3_err = phase_k3(ZK, S, chain_us[K3_THREADS], old_lib)
-    k6_times, k6_err = phase_k6(VK, S, P)
+    old_k6 = None
+    if "k6" in old_paths:
+        old_k6 = (VK.load(old_paths["k6"]),
+                  k6_report(old_paths["k6"], "victim_score_kernel"))
+        emit("baseline_k6_build", source=args.baseline_k6,
+             ptxas=old_k6[1], new_ptxas=k6_ptxas)
+    k6_times, k6_err = phase_k6(VK, S, P, k6_ptxas, old_k6)
     launches, density_shapes, density_names, density_wall = \
         phase_main_path(PK, ZK, T, ClusterState, TorchScheduleAlgorithm, S)
     z_k1, z_k1_shapes, z_k3, z_k3_shapes = phase_zoned_density(
@@ -2457,10 +2563,16 @@ def run(args, jobs) -> int:
         "ms": k6["ms"],
         "traces": k6["traces"],
         "events_ms": k6["events_ms"],
+        "cold_ms": k6["cold_ms"],
         "plain_ms": k6["plain_ms"],
         "bound_ms": k6["bound_ms"],
         "bound_by": k6["bound_by"],
         "bound_share": k6["bound_share"],
+        "baseline_ms": k6.get("baseline_ms"),
+        "path": k6["path"],
+        "rows_per_block": k6["rows_per_block"],
+        "cases": {label: {key: row.get(key) for key in K6_CASE_KEYS}
+                  for label, row in k6_times.items()},
         "ptxas": k6_ptxas,
         "library_ms": None,
     }]}), flush=True)

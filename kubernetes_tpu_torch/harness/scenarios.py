@@ -806,8 +806,9 @@ def victim_case(N, C, seed, kind="fuzz"):
     priority at or below 1); ties (one tier, ordinals repeated: the
     column order breaks ties); density (the director's table of
     bound_cluster nodes, 24 priority-0 pods of 150m / 500Mi each,
-    against a 1-CPU member at priority 10; the rows past 5,000 of 8,192,
-    in proportion, left as pack_candidates pads them)."""
+    against a 1-CPU member at priority 10; the first min(24, C) of them
+    are the row's candidates, the free row counts all 24; the rows past
+    5,000 of 8,192, in proportion, left as pack_candidates pads them)."""
     import numpy as np
 
     from kubernetes_tpu_torch.ops.preempt import INVALID_PRIO
@@ -850,8 +851,8 @@ def victim_case(N, C, seed, kind="fuzz"):
         ordn[:, :per] = rng.permutation(N * per).reshape(N, per)
         res = np.zeros((N, C, 4), np.int64)
         res[:, :per] = (150, 500 << 20, 0, 1)
-        free = np.tile(np.array([4000 - 150 * per, (32 << 30) -
-                                 per * (500 << 20), 0, 110 - per],
+        free = np.tile(np.array([4000 - 150 * 24, (32 << 30) -
+                                 24 * (500 << 20), 0, 110 - 24],
                                 np.int64), (N, 1))
         req = np.array([1000, 500 << 20, 0, 1], np.int64)
         gang_prio = 10
@@ -869,9 +870,14 @@ def victim_case(N, C, seed, kind="fuzz"):
 
 #: (label, N, C, kind) of the victim scorer's checks: the kernel against
 #: its plain version on the card (chip_smoke phase 3c), the plain version
-#: against the JAX package's on the CPU (tests, N cut to 256). The gang
-#: phase's shape comes twice: as the director builds it (every real row
-#: alike) and as a fuzz, so that varied rows meet the kernel there too
+#: against the JAX package's on the CPU (tests, N cut to 256), and the
+#: kernel's lane emulation against both (tests/test_torch_preempt_lanes).
+#: The gang phase's shape comes twice: as the director builds it (every
+#: real row alike) and as a fuzz, so that varied rows meet the kernel
+#: there too; at C = 8 the director's table for nodes of at most 8
+#: lower-priority pods; C = 128 at N = 8,192 times the block path at the
+#: width of nodes holding 65-110 candidates; N = 100 at C = 8 ends in a
+#: part-filled block
 VICTIM_CASES = (
     ("fuzz C=8", 64, 8, "fuzz"),
     ("fuzz C=32", 1024, 32, "fuzz"),
@@ -885,7 +891,15 @@ VICTIM_CASES = (
     ("ties", 64, 16, "ties"),
     ("gang phase N=8192 C=32", 8192, 32, "density"),
     ("fuzz at the gang shape N=8192 C=32", 8192, 32, "fuzz"),
+    ("gang phase N=8192 C=8", 8192, 8, "density"),
+    ("fuzz N=8192 C=128", 8192, 128, "fuzz"),
+    ("tail N=100 C=8", 100, 8, "fuzz"),
 )
+
+#: (N, C) of the victim scorer's row tails: rows that end inside a warp
+#: of the segment path (4 and 2 rows a warp at C = 8 and 16); checked
+#: exactly, not timed
+VICTIM_TAILS = tuple((N, C) for C in (8, 16) for N in (1, 3, 65))
 
 
 # -- the daemon core: the scheduler cache and the scheduling loop -------------

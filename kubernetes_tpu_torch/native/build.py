@@ -27,6 +27,9 @@ builds it anew.
   to time against).
 - ptxas_report(lib, kernel): registers, spills and shared memory of a
   kernel, as ptxas reported them when the library was built.
+- sass_counts(lib, kernel): a kernel's static SASS instructions, in all
+  and of a few kinds (shuffles, barriers, loads, stores), from
+  `cuobjdump -sass`; None where cuobjdump is not found.
 """
 
 from __future__ import annotations
@@ -235,6 +238,50 @@ def parse_ptxas(log: str, kernel: str) -> dict:
             m = re.search(pat, line)
             if m:
                 out[key] = int(m.group(1))
+    return out
+
+
+#: the SASS opcodes sass_counts counts apart
+SASS_KINDS = ("SHFL", "BAR", "LDG", "STG", "LDS", "STS", "VOTE")
+_SASS: dict[str, str] = {}
+_SASS_OP = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[0-9T]+\s+)?"
+                      r"([A-Z][A-Z0-9_]*)")
+
+
+def sass_counts(lib: str, kernel: str) -> dict | None:
+    """-> parse_sass of `cuobjdump -sass lib` for the kernel whose mangled
+    name contains `kernel`, or None where cuobjdump is not found (the
+    disassembly is kept per library)."""
+    if lib not in _SASS:
+        home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+        tool = shutil.which("cuobjdump") or os.path.join(home, "bin",
+                                                         "cuobjdump")
+        if not os.path.exists(tool):
+            return None
+        _SASS[lib] = subprocess.run([tool, "-sass", lib], capture_output=True,
+                                    text=True, timeout=120).stdout
+    return parse_sass(_SASS[lib], kernel)
+
+
+def parse_sass(text: str, kernel: str) -> dict:
+    """cuobjdump -sass output -> {"instructions": the kernel's static
+    instructions but NOP, and one count for each of SASS_KINDS}; {} when
+    no function's name contains `kernel`."""
+    out, mine = {}, False
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            if mine:
+                break
+            mine = kernel in m.group(1)
+            if mine:
+                out = dict.fromkeys(("instructions", *SASS_KINDS), 0)
+            continue
+        m = _SASS_OP.search(line) if mine else None
+        if m and m.group(1) != "NOP":
+            out["instructions"] += 1
+            if m.group(1) in SASS_KINDS:
+                out[m.group(1)] += 1
     return out
 
 

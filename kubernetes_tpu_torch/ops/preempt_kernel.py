@@ -12,11 +12,22 @@ priority (ops/preempt.py says what each output means).
   only there, it runs ops/preempt.victim_score_plain.
 - LAUNCHES counts kernel launches (incremented only where the kernel is
   launched); LAUNCHES_BY_SHAPE counts them by (N, C).
+- layout(C): the path the launcher takes for C, its threads a block and
+  node rows a block.
 
-Bound on the card: bytes (44 B a slot, 44 B a node). The kernel is one
-block per node row, its C slots in shared memory: a bitonic sort on
-(key, column), one block-wide scan of the six prefix sums, and a
-min-reduction for the shortest fitting prefix; see the kernel source.
+Bound on the card: bytes, counted from what the outputs depend on
+(chip_smoke.victim_bound_ms): 8 B a slot (prio read, order written), 36
+B more a valid candidate (ord and four res rows), 44 B a node (free
+read, needed and cost written); at the gang phase's table, (8,192, 32)
+with 24 candidates on each of 5,000 rows, 6.78 MB, 0.00202 ms at 3.35
+TB/s. The kernel reads only those bytes: ord and res only where prio <
+gang_prio. For C <= 32 one W-lane warp segment holds a node row (W =
+C, 256 / C rows a block of 256 threads): the bitonic sort on (key,
+column), the gather of the sorted slots' resources and the segmented
+scan all run in registers by shuffles, and a ballot finds the shortest
+fitting prefix. For 64 <= C <= 1,024 one block of C threads holds a row:
+the sort's stages inside a warp by shuffles, the wider ones through
+shared memory, one barrier each. See the kernel source.
 """
 
 from __future__ import annotations
@@ -32,6 +43,10 @@ I64 = torch.int64
 
 #: the largest candidate axis the kernel takes (one thread a slot)
 MAX_C = 1024
+#: the widest row of the segment path (one warp segment a row), and its
+#: threads a block; wider rows take a block each
+SEG_MAX_C = 32
+SEG_THREADS = 256
 
 #: kernel launches since the last reset (set to 0 to reset)
 LAUNCHES = 0
@@ -67,6 +82,16 @@ def build() -> str:
     return build_cuda("preempt_kernel")
 
 
+def layout(C: int) -> dict:
+    """-> {"path": "segment" | "block", "threads": a block's, "rows": node
+    rows a block} of the launch for candidate axis C, as the launcher in
+    csrc/preempt_kernel.cu picks it."""
+    if C <= SEG_MAX_C:
+        return {"path": "segment", "threads": SEG_THREADS,
+                "rows": SEG_THREADS // C}
+    return {"path": "block", "threads": C, "rows": 1}
+
+
 def _check(name: str, t: torch.Tensor, dtype, shape, device) -> None:
     if t.device != device or t.dtype != dtype or tuple(t.shape) != shape \
             or not t.is_contiguous():
@@ -76,7 +101,9 @@ def _check(name: str, t: torch.Tensor, dtype, shape, device) -> None:
             f"{t.device}")
 
 
-def _launch(prio, ord_, res, free, req, gang_prio: int):
+def _launch(prio, ord_, res, free, req, gang_prio: int, lib=None):
+    """Launch the kernel (of `lib`, a library from load(); this
+    checkout's by default)."""
     global LAUNCHES
     device = prio.device
     N, C = prio.shape
@@ -94,7 +121,7 @@ def _launch(prio, ord_, res, free, req, gang_prio: int):
     order = torch.empty((N, C), dtype=I32, device=device)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = _lib().victim_score_launch(
+        err = (lib or _lib()).victim_score_launch(
             prio.data_ptr(), ord_.data_ptr(), res.data_ptr(),
             free.data_ptr(), req.data_ptr(), int(gang_prio), int(N), int(C),
             needed.data_ptr(), cost.data_ptr(), order.data_ptr(), stream)

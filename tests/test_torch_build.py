@@ -28,6 +28,29 @@ def test_parse_ptxas_reads_one_kernel():
     assert B.parse_ptxas(PTXAS_LOG, "missing") == {}
 
 
+SASS = """\
+\t\tFunction : _Z23victim_score_kernel_segILi8EEvPKi
+\t.headerflags\t@"EF_CUDA_SM90"
+        /*0000*/                   LDC R1, c[0x0][0x28] ;            /* 0x00000a00ff017b82 */
+                                                                     /* 0x000e220000000800 */
+        /*0010*/              @!P0 SHFL.BFLY PT, R3, R2, 0x1, 0x1f ; /* 0x0c201f0002037f89 */
+        /*0020*/                   BAR.SYNC.DEFER_BLOCKING 0x0 ;     /* 0x0000000000007b1d */
+        /*0030*/               @P1 LDG.E R4, desc[UR4][R2.64] ;      /* 0x0000000402047981 */
+        /*0040*/                   EXIT ;                            /* 0x000000000000794d */
+        /*0050*/                   NOP;                              /* 0x0000000000007918 */
+\t\tFunction : _Z23victim_score_kernel_segILi16EEvPKi
+        /*0000*/                   SHFL.IDX PT, R3, R2, R0, 0x1f ;   /* 0x0000000002037f89 */
+"""
+
+
+def test_parse_sass_counts_one_kernel():
+    assert B.parse_sass(SASS, "victim_score_kernel_segILi8E") == {
+        "instructions": 5, "SHFL": 1, "BAR": 1, "LDG": 1, "STG": 0,
+        "LDS": 0, "STS": 0, "VOTE": 0}
+    assert B.parse_sass(SASS, "segILi16E")["instructions"] == 1
+    assert B.parse_sass(SASS, "missing") == {}
+
+
 @pytest.fixture
 def sources(tmp_path):
     src = tmp_path / "k.cu"

@@ -283,6 +283,22 @@ def test_victim_kernel_matches_plain_on_card(case, cuda_device):
         assert a.dtype == b.dtype and torch.equal(a, b), label
 
 
+@pytest.mark.parametrize("N,C", S.VICTIM_TAILS,
+                         ids=[f"N={n} C={c}" for n, c in S.VICTIM_TAILS])
+def test_victim_kernel_row_tails_on_card(N, C, cuda_device):
+    """Rows that end inside a warp of K6's segment path."""
+    from kubernetes_tpu_torch.ops.preempt import victim_score_plain
+
+    c = S.victim_case(N, C, 6, "fuzz")
+    args = [torch.as_tensor(c[k]).to(cuda_device)
+            for k in ("prio", "ord", "res", "free", "req")]
+    got = VK.victim_score(*args, c["gang_prio"])
+    want = victim_score_plain(*args, c["gang_prio"])
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b), (N, C)
+
+
 def test_gang_cycle_on_card_matches_cpu(cuda_device):
     """A director cycle with a parked high-priority gang: the same hosts,
     parks, statuses and victims on the card (K1 and K6 launched) as on
