@@ -10,6 +10,7 @@ non-zero:
   2. build: the CUDA kernels (csrc/probe_kernel.cu, K1; csrc/
      zreplay_kernel.cu, K3, one report per template instance; csrc/
      preempt_kernel.cu, K6, one report per template instance; csrc/
+     assign_kernel.cu, K7, the auction's and the beam's reports; csrc/
      chain_floor.cu, K3's yardstick) built
      with nvcc for sm_90a from the
      sources in this checkout, in parallel, with ptxas's registers, spills
@@ -59,6 +60,18 @@ non-zero:
      checkout's, device times in turns (old, new, new, old), its
      max_abs_err against the plain version and both ptxas and SASS
      reports, on every case;
+  3d. K7 vs plain: scheduler/optimizer/ops/assign_kernel.auction_assign
+     (K7a, one cooperative launch) and beam_assign (K7b, one block)
+     against ops/assign._auction_assign_fn and _beam_assign_fn, exact
+     equality of owner (dtype and values), on scenarios.ASSIGN_CASES (the
+     solver fuzz's shapes, P and N not powers of two, all-equal scores,
+     repeated FIFO ranks, a run past 64 rounds, pack_config2's full
+     solve at (2,048, 1,024), the largest solve under the default slot
+     cap at the density node count, (4,096, 8,192), and beams at (32,
+     1,024) and (16, 8,192)); on the last four, the kernel's device time
+     (profiler), the plain version's (CUDA events), the byte bound read
+     once and over the rounds run (each round the rows of the slots that
+     bid in it) and the shares;
   4. main path: the scheduler_perf density shape at the north-star size
      (5,000 nodes of 4 CPU / 32Gi / 110 pods, 50,000 pause pods of
      100m / 500Mi) through TorchScheduleAlgorithm on the card; every pod
@@ -161,19 +174,41 @@ non-zero:
      a full-width call under the same Policy; the pipelined arms stage,
      the quantized arms place narrower tables, the bf16 arms launch K1's
      bf16 mode;
+  13. the optimizing profile (TorchScheduleAlgorithm(profile=
+     "optimizing")): the JAX package's bench.py --pack configs at full
+     width through scenarios.pack_config2 (1,000 nodes padded to 1,024,
+     2,000 pods of three templates, LeastRequested + BalancedAllocation)
+     and pack_config4 (999 zoned nodes, 1,998 pods of two RC templates,
+     the default provider), each in a greedy and an optimizing arm on the
+     card: names equal to the port's CPU run of the same arm
+     (host_jobs), the optimizing arm strictly above greedy in pods
+     scheduled and in utilization, both at 6 dispatches or fewer, K1 and
+     K7 launched in the optimizing arms by the counters and by the
+     trace; each arm's wall and stats, and for the optimizing arms the
+     solve's device time and the idle share from a second, traced call
+     (a greedy arm's serial scan launches ~10^6 kernels, whose trace
+     takes minutes to read: its idle share is not measured); on
+     pack_config2's cluster a gang of 64 x 3 CPU ahead of 64 singletons
+     binds all or nothing (both packages park it on the 1,000 nodes
+     padded to 1,024: the auction's tie rotation runs over the padding)
+     and whole on 1,024 nodes, a gang of 1,001 x 3 CPU comes back all
+     None and a 24-pod wave takes the beam (K7b), each equal to the CPU;
   11. the kernels line, with the launch counts of each path it drove
      (K1's bf16 mode as its own entry, resource_probe_bf16: phase 12's
-     bf16 arms are its path); then nvidia-smi's line, then the result
-     line {"ok": true, "device": {...}}.
+     bf16 arms are its path; K7's auction and beam as assign_auction and
+     assign_beam: phase 13 is their path); then nvidia-smi's line, then
+     the result line {"ok": true, "device": {...}}.
 
-Every idle share comes from a profiler trace kept only when its K1, K3
-and K6 events equal the launches the wrappers counted during the traced
-call (device_busy_ms); the line prints both.
+Every idle share comes from a profiler trace kept only when its K1, K3,
+K6 and K7 events equal the launches the wrappers counted during the
+traced call (device_busy_ms, and traced_call in phase 13); the line
+prints both.
 
 Each path's launch counts are set to 0 just before it and read just
 after; a path that does not launch each of its kernels fails. The
 host-only references (the serial oracle of phases 5 and 6, phase 6's
-CPU runs, the CPU flows of phases 8 and 9b, phase 12's CPU run) run from
+CPU runs, the CPU flows of phases 8 and 9b, phase 12's and phase 13's
+CPU runs) run from
 the start in three worker processes of two torch threads each
 (host_jobs), beside the card's phases.
 
@@ -249,8 +284,13 @@ PROFILE_SIZE = (5000, 12288)
 PROFILE_WARM = 2
 
 
+#: the script's start, for the elapsed seconds of every phase line
+T0 = time.perf_counter()
+
+
 def emit(phase: str, **kw) -> None:
-    print(json.dumps({"phase": phase, **kw}), flush=True)
+    print(json.dumps({"phase": phase, **kw,
+                      "elapsed_s": time.perf_counter() - T0}), flush=True)
 
 
 def nvidia_smi_line() -> str:
@@ -899,6 +939,321 @@ def phase_k6(VK, S, P, ptxas, old=None):
     return results, max_err
 
 
+# -- phase 3d: K7 against its plain version -----------------------------------
+
+#: the ASSIGN_CASES entries phase 3d times: the auction at pack_config2's
+#: full solve and at the largest solve under the default slot cap at the
+#: density node count, the beam at two node counts; the first of each
+#: solver is its row in the kernels line
+K7_TIMED = ("pack P=2048 N=1024", "pack P=4096 N=8192", "beam P=32 N=1024",
+            "beam P=16 N=8192")
+K7_MAIN = {"auction": "pack P=2048 N=1024", "beam": "beam P=32 N=1024"}
+
+
+def assign_bound_ms(P, N) -> float:
+    """Least time for one solve of K7: its inputs read once and owner
+    written once over the HBM rate: fit and score (9 B a slot and node),
+    req, commit, check, prio and order (76 B a slot), cap (32 B a node),
+    owner (4 B a slot). The auction's rounds re-read the slot rows:
+    assign_rounds_bound_ms counts them."""
+    nbytes = P * N * 9 + P * 80 + N * 32
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def assign_rounds_bound_ms(P, N, bids, ran) -> float:
+    """Least time for the `ran` rounds an auction launch ran (bids
+    i32[rounds] from assign_kernel._launch_auction, rounds_run of them
+    `ran`): each round reads the rows of the slots that bid in it (fit,
+    score, req, commit, check, prio and order: 9 B a node and 76 B) and
+    cap (32 B a node); owner is written once. Slots already seated, or
+    with no fitting node left, bid in no round and are not counted."""
+    rows = int(bids.to(torch.int64).sum())
+    nbytes = rows * (N * 9 + 76) + ran * N * 32 + P * 4
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def k7_reports(lib) -> dict:
+    from kubernetes_tpu_torch.native.build import ptxas_report
+
+    return {"auction": ptxas_report(lib, "assign_auction_kernel"),
+            "beam": ptxas_report(lib, "assign_beam_kernel")}
+
+
+def k7_inputs(S, A, case, seed):
+    """An ASSIGN_CASES entry on the card -> (tables, prio, order, eps0,
+    rounds)."""
+    _label, P, N, kind, live, _solver = case
+    c = S.assign_case(P, N, seed, kind, live)
+    t = {k: torch.as_tensor(v).cuda() for k, v in c.items()}
+    tabs = [t[k] for k in ("fit", "score", "req", "commit", "check", "cap")]
+    return (tabs, t["prio"].to(torch.int32), t["order"].to(torch.int32),
+            A.auction_eps0(c["score"], N), A.auction_rounds(P, N))
+
+
+def phase_k7(AK, A, S, ptxas):
+    """K7 against its plain version on every scenarios.ASSIGN_CASES entry
+    (the solver fuzz's shapes, P and N not powers of two, all-equal
+    scores, repeated FIFO ranks, a run past 64 rounds, the profile's
+    solve shapes), exact equality of owner, dtype and values; on the
+    K7_TIMED entries the kernel's device time (profiler, every launch of
+    the trace accounted for), the plain version's (CUDA events), the
+    byte bound read once and over the rounds run, the shares and, for the
+    auction, the rounds the launch ran and its cooperative grid. ->
+    ({label: row}, max_abs_err)."""
+    results, max_err = {}, 0
+    for seed, case in enumerate(S.ASSIGN_CASES):
+        label, P, N, kind, _live, solver = case
+        tabs, prio, order, eps0, rounds = k7_inputs(S, A, case, seed)
+        ran = None
+        if solver == "auction":
+            def kernel():
+                return AK._launch_auction(*tabs, prio, order, eps0, rounds)
+
+            def plain():
+                return A._auction_assign_fn(rounds, *tabs, prio, order, eps0)
+
+            got, bids = AK._launch_auction(*tabs, prio, order, eps0, rounds,
+                                           bids=True)
+            torch.cuda.synchronize()
+            ran = AK.rounds_run(bids)
+            symbol = "assign_auction_kernel"
+        else:
+            def kernel():
+                return AK._launch_beam(*tabs)
+
+            def plain():
+                return A._beam_assign_fn(4, 4, *tabs)
+
+            got = kernel()
+            symbol = "assign_beam_kernel"
+        want = plain()
+        torch.cuda.synchronize()
+        equal = got.dtype == want.dtype and torch.equal(got, want)
+        err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+        max_err = max(max_err, err)
+        row = dict(P=P, N=N, kind=kind, solver=solver,
+                   assigned=int((got >= 0).sum()), rounds=rounds,
+                   rounds_run=ran, ptxas=ptxas[solver])
+        if solver == "auction":
+            row["grid"] = AK.auction_grid(P, N)
+        if label in K7_TIMED:
+            ms, _call_ms, seen = kernel_device_ms(kernel, symbol, n=10)
+            once = assign_bound_ms(P, N)
+            row.update(ms=ms, traces=seen,
+                       plain_ms=cuda_ms(plain, reps=3, inner=1),
+                       bound_ms=once, bound_by="bytes",
+                       bound_share=once / ms)
+            if ran is not None:
+                rounds_ms = assign_rounds_bound_ms(P, N, bids, ran)
+                row.update(per_round_bound_ms=rounds_ms,
+                           per_round_share=rounds_ms / ms)
+        results[label] = row
+        emit("k7_vs_plain", case=label, equal=equal, max_abs_err=err,
+             library_call="none", **row)
+        if not equal:
+            raise AssertionError(f"K7 != plain on {label}")
+    return results, max_err
+
+
+# -- phase 13: the optimizing profile -----------------------------------------
+
+#: phase 13's waves on pack_config2's cluster beside its two arms: a gang
+#: of 64 x 3 CPU at the head of 64 1-CPU singletons (room enough; on the
+#: 1,000 nodes padded to 1,024 both packages park it, ROADMAP.md queue 3,
+#: and on 1,024 nodes it binds whole), a gang of 1,001 x 3 CPU (one more
+#: than the nodes: it cannot fit), and 24 pods (a wave the beam takes)
+OPT_GANG_FIT = (64, 64)
+OPT_GANG_UNFIT = 1001
+OPT_BEAM_PODS = 24
+
+
+def optimizing_waves(T, S):
+    """phase 13's calls: -> [(label, pack config, pods, gangs, profile)],
+    the pack configs at full size in both arms, then the gang and beam
+    waves on pack_config2's cluster."""
+    out = []
+    for key, build in S.PACK_CONFIGS.items():
+        cfg = build(T)
+        for prof in ("greedy", "optimizing"):
+            out.append((f"{key}_{prof}", cfg, cfg["pods"], None, prof))
+    cfg = S.pack_config2(T)
+    pods, gangs = S.pack_gang_wave(T, OPT_GANG_FIT[0],
+                                   singles=OPT_GANG_FIT[1], name="fit")
+    out.append(("gang_fit", cfg, pods, gangs, "optimizing"))
+    out.append(("gang_fit_1024", S.pack_config2(T, n_nodes=1024), pods,
+                gangs, "optimizing"))
+    pods, gangs = S.pack_gang_wave(T, OPT_GANG_UNFIT, name="unfit")
+    out.append(("gang_unfit", cfg, pods, gangs, "optimizing"))
+    out.append(("beam_wave", cfg, cfg["pods"][:OPT_BEAM_PODS], None,
+                "optimizing"))
+    return out
+
+
+def optimizing_algorithm(device, cfg, prof):
+    from kubernetes_tpu_torch.models import batch as B
+    from kubernetes_tpu_torch.harness import scenarios as S
+    from kubernetes_tpu_torch.scheduler.algorithm import (
+        TorchScheduleAlgorithm,
+    )
+
+    return TorchScheduleAlgorithm(device=device, profile=prof,
+                                  config=S.pack_scheduler_config(B, cfg))
+
+
+def optimizing_cpu_names():
+    """Phase 13's calls on the CPU (a host_jobs worker): -> ({label:
+    names}, {label: seconds})."""
+    from kubernetes_tpu_torch.api import types as T
+    from kubernetes_tpu_torch.harness import scenarios as S
+    from kubernetes_tpu_torch.oracle import ClusterState
+
+    names, seconds = {}, {}
+    for label, cfg, pods, gangs, prof in optimizing_waves(T, S):
+        t0 = time.perf_counter()
+        names[label] = optimizing_algorithm("cpu", cfg, prof).schedule_backlog(
+            pods, S.pack_state(ClusterState, cfg), gangs=gangs)
+        seconds[label] = time.perf_counter() - t0
+    return names, seconds
+
+
+def traced_call(fn, kernels, solve_symbol, tries=3):
+    """device_busy_ms for a call that also reports the device time of the
+    kernel solve_symbol: -> (fn's result, idle fields, solve ms)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    seen = []
+    for _ in range(tries):
+        before = {k: m.LAUNCHES for k, m in kernels.items()}
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        launched = {k: m.LAUNCHES - before[k] for k, m in kernels.items()}
+        busy_ms, events = trace_busy(prof, kernels)
+        seen.append(events)
+        if events == launched:
+            solve_us = sum(ev.self_device_time_total
+                           for ev in prof.key_averages()
+                           if solve_symbol in ev.key)
+            return (out, idle_fields(busy_ms, wall, launched, seen),
+                    solve_us / 1e3)
+    raise RuntimeError(f"{tries} profiler traces recorded {seen} kernel "
+                       f"events where the wrappers counted {launched}")
+
+
+def phase_optimizing(PK, AK, jobs):
+    """Phase 13: the optimizing profile at full width. pack_config2 and
+    pack_config4 in a greedy and an optimizing arm on the card, each
+    arm's wall, an optimizing arm's call traced again (idle share, the
+    solve's device time); names equal
+    to the port's CPU run of the same arm (jobs["optimizing_cpu"]); the
+    optimizing arm strictly above greedy in pods scheduled and
+    utilization; both arms at 6 dispatches or fewer; K1 and K7 launched
+    in the optimizing arms, by the counters and by the trace. On
+    pack_config2's cluster: a gang with room binds all or nothing (on
+    the padded 1,000 nodes both packages park it) and whole on 1,024
+    nodes, an unfittable one comes back all None, and a 24-pod wave takes
+    the beam (K7b), each equal to the CPU. -> {label: (K1 launches, K1 shapes, K7 launches, K7
+    shapes)}."""
+    from kubernetes_tpu_torch.api import types as T
+    from kubernetes_tpu_torch.harness import scenarios as S
+    from kubernetes_tpu_torch.oracle import ClusterState
+
+    kernels = {"resource_probe_kernel": PK,
+               "assign_auction_kernel": AK}
+    cpu_names, cpu_seconds = jobs["optimizing_cpu"].get()
+    paths, arms = {}, {}
+    for label, cfg, pods, gangs, prof in optimizing_waves(T, S):
+        state = S.pack_state(ClusterState, cfg)
+        cold_wall = None
+        if prof == "optimizing":
+            # the first call pays the first use of each torch op; the
+            # greedy arms run the serial scan, used since phase 5
+            t0 = time.perf_counter()
+            optimizing_algorithm("cuda", cfg, prof).schedule_backlog(
+                pods, state, gangs=gangs)
+            torch.cuda.synchronize()
+            cold_wall = time.perf_counter() - t0
+        algo = optimizing_algorithm("cuda", cfg, prof)
+        reset(PK, AK)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        names = algo.schedule_backlog(pods, state, gangs=gangs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        k1, k7 = PK.LAUNCHES, AK.LAUNCHES
+        k7_shapes = [{"solver": s, "P": P, "N": N, "launches": k}
+                     for (s, P, N), k in sorted(AK.LAUNCHES_BY_SHAPE.items())]
+        paths[label] = (k1, shapes(PK.LAUNCHES_BY_SHAPE), k7, k7_shapes)
+        driver = algo._opt or algo._wave
+        idle, solve_ms = dict.fromkeys((
+            "traced_wall_s", "device_busy_ms", "device_idle_share",
+            "traced_launches", "trace_kernel_events")), None
+        if prof == "optimizing":
+            # the same call again, traced; a greedy arm's ~10^6 scan
+            # launches make a trace that takes minutes to read, so its
+            # idle share is not measured here (phase 6 traces the scan)
+            algo._last_node_index = 0
+            traced, idle, solve_ms = traced_call(
+                lambda: algo.schedule_backlog(pods, state, gangs=gangs),
+                kernels if label != "beam_wave" else {
+                    "resource_probe_kernel": PK, "assign_beam_kernel": AK},
+                "assign_beam_kernel" if label == "beam_wave"
+                else "assign_auction_kernel")
+            if traced != names:
+                raise AssertionError(f"phase 13 {label}: the traced call "
+                                     f"chose other nodes")
+        disp = dict(driver.dispatches)
+        total = sum(v for k, v in disp.items() if k != "scan_pods")
+        out = S.pack_outcome(pods, names, cfg["alloc_mcpu"])
+        if names != cpu_names[label]:
+            raise AssertionError(f"phase 13 {label}: the card's names differ "
+                                 f"from the CPU run's")
+        if total > 6:
+            raise AssertionError(f"phase 13 {label}: {disp}")
+        # traced_call kept only a trace whose K1 and K7 events equal the
+        # launches counted during the call
+        if prof == "optimizing" and (
+                k1 <= 0 or k7 <= 0
+                or 0 in idle["traced_launches"].values()):
+            raise AssertionError(f"phase 13 {label}: K1 {k1}, K7 {k7}, "
+                                 f"trace {idle['trace_kernel_events']}")
+        arms[label] = out
+        emit("optimizing", case=label, profile=prof,
+             nodes=len(cfg["nodes"]), **out, wall_s=wall,
+             cold_wall_s=cold_wall, solve_device_ms=solve_ms,
+             stats=dict(algo._opt.stats) if algo._opt else None,
+             dispatches=disp, dispatches_total=total, k1_launches=k1,
+             k1_launches_by_shape=paths[label][1], k7_launches=k7,
+             k7_launches_by_shape=k7_shapes, cpu_worker_s=cpu_seconds[label],
+             equal_to_cpu=True, **idle)
+    for key in S.PACK_CONFIGS:
+        g, o = arms[f"{key}_greedy"], arms[f"{key}_optimizing"]
+        if not (o["scheduled"] > g["scheduled"]
+                and o["utilization"] > g["utilization"]):
+            raise AssertionError(f"phase 13 {key}: optimizing {o} does not "
+                                 f"beat greedy {g}")
+    members, singles = OPT_GANG_FIT
+    bound = {label: arms[label]["scheduled"] - singles
+             for label in ("gang_fit", "gang_fit_1024")}
+    if bound["gang_fit"] not in (0, members) \
+            or bound["gang_fit_1024"] != members:
+        raise AssertionError(f"phase 13: the 64-member gang bound "
+                             f"{bound} (all or nothing; whole on 1,024 "
+                             f"nodes)")
+    if arms["gang_unfit"]["scheduled"] != 0:
+        raise AssertionError("phase 13: the unfittable gang bound in part")
+    if [s["solver"] for s in paths["beam_wave"][3]] != ["beam"]:
+        raise AssertionError(f"phase 13: the 24-pod wave took "
+                             f"{paths['beam_wave'][3]}")
+    emit("optimizing_gates", gang_members_bound=bound, **{
+        key: {"greedy": arms[f"{key}_greedy"],
+              "optimizing": arms[f"{key}_optimizing"]}
+        for key in S.PACK_CONFIGS})
+    return paths
+
+
 # -- phases 4 and 5: the scheduler -------------------------------------------
 
 
@@ -1197,6 +1552,7 @@ def host_jobs(pool, S) -> dict:
         daemon_gang_cpu_flow, (DAEMON_GANG_SIZE, DAEMON_GANG_RETRIES))
     jobs["profile_cpu"] = pool.apply_async(profile_cpu_names,
                                            (PROFILE_SIZE,))
+    jobs["optimizing_cpu"] = pool.apply_async(optimizing_cpu_names)
     return jobs
 
 
@@ -2332,6 +2688,53 @@ def shapes(by_shape: dict) -> list:
             for (J, N, mode), k in sorted(by_shape.items())]
 
 
+#: the JAX functions K7 replaces, by solver
+K7_REPLACES = {
+    "auction": "kubernetes_tpu/scheduler/optimizer/ops/assign.py:61",
+    "beam": "kubernetes_tpu/scheduler/optimizer/ops/assign.py:144",
+}
+
+
+def k7_entry(solver, times, err, ptxas, paths) -> dict:
+    """K7's entry in the kernels line for one solver: its row at
+    K7_MAIN's shape, its launches on phase 13's paths (the auction on the
+    pack configs' optimizing arms and the gang waves, the beam on the
+    24-pod wave) and its other timed shapes."""
+    row = times[K7_MAIN[solver]]
+    by_path = {label: sum(s["launches"] for s in p[3]
+                          if s["solver"] == solver)
+               for label, p in paths.items()}
+    by_path = {k: v for k, v in by_path.items() if v}
+    return {
+        "name": f"assign_{solver}",
+        "route": "cuda",
+        "source": "kubernetes_tpu_torch/csrc/assign_kernel.cu",
+        "replaces": K7_REPLACES[solver],
+        "launches": sum(by_path.values()),
+        "launches_by_path": by_path,
+        "launches_by_shape": {label: [s for s in p[3]
+                                      if s["solver"] == solver]
+                              for label, p in paths.items()
+                              if label in by_path},
+        "max_abs_err": err,
+        "matches_plain": True,
+        "ms": row["ms"],
+        "plain_ms": row["plain_ms"],
+        "bound_ms": row["bound_ms"],
+        "bound_by": row["bound_by"],
+        "bound_share": row["bound_share"],
+        "per_round_bound_ms": row.get("per_round_bound_ms"),
+        "rounds_run": row.get("rounds_run"),
+        "cases": {label: {k: r.get(k) for k in (
+            "P", "N", "ms", "plain_ms", "bound_ms", "bound_share",
+            "per_round_bound_ms", "per_round_share", "rounds_run", "grid")}
+            for label, r in times.items()
+            if "ms" in r and r["solver"] == solver},
+        "ptxas": ptxas[solver],
+        "library_ms": None,
+    }
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--baseline", metavar="OLD.cu",
@@ -2376,6 +2779,10 @@ def run(args, jobs) -> int:
     from kubernetes_tpu_torch.scheduler.extender_server import (
         TorchExtenderServer,
     )
+    from kubernetes_tpu_torch.scheduler.optimizer.ops import assign as A
+    from kubernetes_tpu_torch.scheduler.optimizer.ops import (
+        assign_kernel as AK,
+    )
 
     kind = torch.cuda.get_device_name(0)
     smi = nvidia_smi_line()
@@ -2384,7 +2791,7 @@ def run(args, jobs) -> int:
          cuda=torch.version.cuda)
 
     # one nvcc per kernel source, all started together
-    builds = [PK.build, ZK.build, VK.build,
+    builds = [PK.build, ZK.build, VK.build, AK.build,
               lambda: build_cuda("chain_floor")]
     baselines = [(flag, src, name) for flag, src, name in (
         ("k3", args.baseline_k3, "zreplay_kernel_baseline"),
@@ -2394,14 +2801,15 @@ def run(args, jobs) -> int:
             os.path.abspath(src), name))
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(builds)) as pool:
-        k1_lib, k3_lib, k6_lib, chain_lib, *old_libs = pool.map(
+        k1_lib, k3_lib, k6_lib, k7_lib, chain_lib, *old_libs = pool.map(
             lambda f: f(), builds)
     old_paths = {flag: path for (flag, _s, _n), path in zip(baselines,
                                                              old_libs)}
     k3_ptxas = k3_reports(k3_lib)
     k6_ptxas = k6_reports(k6_lib)
+    k7_ptxas = k7_reports(k7_lib)
     emit("build", kernels=["resource_probe", "zreplay", "victim_score",
-                           "chain_floor"],
+                           "assign", "chain_floor"],
          seconds=time.perf_counter() - t0,
          ptxas={"resource_probe": ptxas_report(k1_lib,
                                                "resource_probe_kernel"),
@@ -2409,6 +2817,7 @@ def run(args, jobs) -> int:
                     k1_lib, "resource_probe_bf16_kernel"),
                 "zreplay": k3_ptxas,
                 "victim_score": k6_ptxas,
+                "assign": k7_ptxas,
                 "chain_floor": {
                     f"threads={n}": ptxas_report(
                         chain_lib, f"chain_floor_kernelILi{n}E")
@@ -2434,6 +2843,7 @@ def run(args, jobs) -> int:
         emit("baseline_k6_build", source=args.baseline_k6,
              ptxas=old_k6[1], new_ptxas=k6_ptxas)
     k6_times, k6_err = phase_k6(VK, S, P, k6_ptxas, old_k6)
+    k7_times, k7_err = phase_k7(AK, A, S, k7_ptxas)
     launches, density_shapes, density_names, density_wall = \
         phase_main_path(PK, ZK, T, ClusterState, TorchScheduleAlgorithm, S)
     z_k1, z_k1_shapes, z_k3, z_k3_shapes = phase_zoned_density(
@@ -2459,6 +2869,7 @@ def run(args, jobs) -> int:
         PK, ZK, ClusterState, TorchScheduleAlgorithm)
     profile_bf16, profile_bf16_shapes = phase_profiles(
         PK, S, TorchScheduleAlgorithm, jobs)
+    opt_paths = phase_optimizing(PK, AK, jobs)
 
     # the density path probes J=128 over the 5,000 nodes padded to 8,192;
     # the zoned density path runs one 50,000-pick run in a 65,536 bucket
@@ -2481,7 +2892,9 @@ def run(args, jobs) -> int:
                              "gangs": gang_k1, "daemon": daemon_k1,
                              "daemon_gangs": daemon_gang_k1,
                              "wire": wire_k1,
-                             "wire_separate": separate_k1},
+                             "wire_separate": separate_k1,
+                             **{f"optimizing_{k}": v[0]
+                                for k, v in opt_paths.items()}},
         "launches_by_shape": {"density": density_shapes,
                               "zoned_density": z_k1_shapes,
                               "many_templates": tpl_k1_shapes,
@@ -2492,7 +2905,9 @@ def run(args, jobs) -> int:
                               "daemon": daemon_k1_shapes,
                               "daemon_gangs": daemon_gang_k1_shapes,
                               "wire": wire_k1_shapes,
-                              "wire_separate": separate_k1_shapes},
+                              "wire_separate": separate_k1_shapes,
+                              **{f"optimizing_{k}": v[1]
+                                 for k, v in opt_paths.items()}},
         "max_abs_err": max_err,
         "matches_plain": True,
         "ms": k1["ms"],
@@ -2575,7 +2990,8 @@ def run(args, jobs) -> int:
                   for label, row in k6_times.items()},
         "ptxas": k6_ptxas,
         "library_ms": None,
-    }]}), flush=True)
+    }, *[k7_entry(solver, k7_times, k7_err, k7_ptxas, opt_paths)
+         for solver in ("auction", "beam")]]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -11,7 +11,7 @@ JAX package's, the rows and report both sanitizers emit.
 Left out: run_static_passes, the CLI body that lints the tree, audits
 the device programs and model-checks the consensus store. It reaches
 modules the port does not have (lint, jaxpr_audit, sim); the audit of
-the port's own programs is ROADMAP.md queue 1 item 6.
+the port's own programs is ROADMAP.md queue 1 item 3.
 """
 
 from __future__ import annotations

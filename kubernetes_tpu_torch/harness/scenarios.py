@@ -1010,3 +1010,246 @@ def daemon_flow(C, core, G, algorithm, nodes, bound=(), backlog=(),
             "errors": errors, "statuses": statuses,
             "victims": [v.metadata.name for v in evicted],
             "cycles": cycles}
+
+
+# -- the optimizing profile's packing configs ---------------------------------
+
+#: the SchedulerConfig of bench.py's pack_config2, as (predicates,
+#: priorities): PodFitsResources, LeastRequested + BalancedAllocation
+PACK_LRBA = (("PodFitsResources",),
+             (("LeastRequestedPriority", 1),
+              ("BalancedResourceAllocation", 1)))
+
+
+def pack_config2(T, smoke=False, n_nodes=None) -> dict:
+    """bench.py _pack_config2 for package T, the packed heterogeneous-
+    request config: 64 nodes (smoke) or 1,000 (or n_nodes), each 4 CPU /
+    32Gi / 110 pods (bench.py build), and per node a 1-CPU pod (1Gi or
+    2Gi, alternating: two small templates) and a 3-CPU / 3Gi pod,
+    interleaved, so demand equals capacity; greedy FIFO + LeastRequested
+    strands the big tail. -> {"nodes", "pods", "services",
+    "controllers", "config": PACK_LRBA, "alloc_mcpu": the cluster's
+    allocatable millicores}."""
+    if n_nodes is None:
+        n_nodes = 64 if smoke else 1000
+    nodes = [
+        T.Node(
+            metadata=T.ObjectMeta(name=f"node-{i:05d}"),
+            status=T.NodeStatus(
+                allocatable={"cpu": "4", "memory": "32Gi", "pods": "110"},
+                conditions=[T.NodeCondition("Ready", "True")],
+            ),
+        )
+        for i in range(n_nodes)
+    ]
+
+    def het(name, cpu, mem):
+        return T.Pod(
+            metadata=T.ObjectMeta(name=name),
+            spec=T.PodSpec(containers=[T.Container(requests={
+                "cpu": cpu, "memory": mem})]),
+        )
+
+    pods = []
+    for i in range(n_nodes):
+        pods.append(het(f"small-{i:05d}", "1000m",
+                        "1Gi" if i % 2 else "2Gi"))
+        pods.append(het(f"big-{i:05d}", "3000m", "3Gi"))
+    services = [T.Service(metadata=T.ObjectMeta(name="sched-perf"),
+                          spec=T.ServiceSpec(selector={"name": "sched-perf"}))]
+    return {"nodes": nodes, "pods": pods, "services": services,
+            "controllers": [], "config": PACK_LRBA,
+            "alloc_mcpu": n_nodes * 4000}
+
+
+def pack_config4(T, smoke=False) -> dict:
+    """bench.py _pack_config4 for package T, the packed zoned-spread
+    config: 48 nodes (smoke) or 999 over zones a/b/c (hostname and zone
+    labels, 4 CPU / 32Gi / 110 pods) and two RC templates of complementary
+    sizes (1 CPU / 1Gi, 3 CPU / 3Gi), a pod of each per node, interleaved,
+    under the default provider (SelectorSpread active). -> pack_config2's
+    dict, "config" None (the default provider)."""
+    n_nodes = 48 if smoke else 999
+    zones = ("a", "b", "c")
+    nodes = [
+        T.Node(
+            metadata=T.ObjectMeta(
+                name=f"znode-{i:05d}",
+                labels={HOSTNAME: f"znode-{i:05d}", ZONE: zones[i % 3]},
+            ),
+            status=T.NodeStatus(
+                allocatable={"cpu": "4", "memory": "32Gi", "pods": "110"},
+                conditions=[T.NodeCondition("Ready", "True")],
+            ),
+        )
+        for i in range(n_nodes)
+    ]
+    rcs = [T.ReplicationController(
+        metadata=T.ObjectMeta(name=f"rc-{tag}"),
+        spec=T.ReplicationControllerSpec(selector={"rc": f"rc-{tag}"}))
+        for tag in ("small", "big")]
+    pods = []
+    for i in range(n_nodes):
+        pods.append(T.Pod(
+            metadata=T.ObjectMeta(name=f"rcs-{i:05d}",
+                                  labels={"rc": "rc-small"}),
+            spec=T.PodSpec(containers=[T.Container(requests={
+                "cpu": "1000m", "memory": "1Gi"})]),
+        ))
+        pods.append(T.Pod(
+            metadata=T.ObjectMeta(name=f"rcb-{i:05d}",
+                                  labels={"rc": "rc-big"}),
+            spec=T.PodSpec(containers=[T.Container(requests={
+                "cpu": "3000m", "memory": "3Gi"})]),
+        ))
+    return {"nodes": nodes, "pods": pods, "services": [],
+            "controllers": rcs, "config": None,
+            "alloc_mcpu": n_nodes * 4000}
+
+
+#: the pack configs by the keys of bench.py run_pack's record
+PACK_CONFIGS = {"pack_config2": pack_config2, "pack_config4": pack_config4}
+
+
+def pack_state(CS, cfg: dict):
+    """A pack config's cluster as package CS's (oracle.ClusterState)."""
+    return CS.build(cfg["nodes"], services=cfg["services"],
+                    controllers=cfg["controllers"])
+
+
+def pack_scheduler_config(B, cfg: dict):
+    """A pack config's SchedulerConfig of package B's models/batch, or
+    None for the default provider."""
+    if cfg["config"] is None:
+        return None
+    predicates, priorities = cfg["config"]
+    return B.SchedulerConfig(predicates=predicates, priorities=priorities)
+
+
+def pack_outcome(pods, hosts, alloc_mcpu: int) -> dict:
+    """bench.py run_pack's arm figures: pods scheduled, and the packed
+    utilization (the placed pods' CPU requests over the cluster's
+    allocatable CPU, rounded to 4 places as there)."""
+    placed_mcpu = sum(
+        int(str(p.spec.containers[0].requests["cpu"]).rstrip("m"))
+        for p, h in zip(pods, hosts) if h is not None)
+    return {"scheduled": sum(1 for h in hosts if h is not None),
+            "pods": len(pods),
+            "utilization": round(placed_mcpu / alloc_mcpu, 4)}
+
+
+def pack_gang_wave(T, members, cpu="3000m", singles=0, name="gang"):
+    """A gang of `members` pods of `cpu` / 1Gi at the head of a backlog,
+    then `singles` 1-CPU pods: -> (backlog, the wave driver's gang layout
+    [{"start", "length", "score_by_name"}])."""
+    pods = [T.Pod(metadata=T.ObjectMeta(name=f"{name}-{i:05d}",
+                                        labels={"app": name}),
+                  spec=T.PodSpec(containers=[T.Container(requests={
+                      "cpu": cpu, "memory": "1Gi"})]))
+            for i in range(members)]
+    pods += [T.Pod(metadata=T.ObjectMeta(name=f"{name}-single-{i:05d}",
+                                         labels={"app": "single"}),
+                   spec=T.PodSpec(containers=[T.Container(requests={
+                       "cpu": "1000m", "memory": "1Gi"})]))
+             for i in range(singles)]
+    return pods, [{"start": 0, "length": members, "score_by_name": None}]
+
+
+# -- the joint-assignment solve K7 --------------------------------------------
+
+def assign_case(P, N, seed, kind="fuzz", n_live=None):
+    """One joint-assignment problem (scheduler/optimizer/ops/assign.py's
+    tables, numpy): -> {"fit" bool[P, N], "score" i64[P, N], "req",
+    "commit" i64[P, 4], "check" bool[P, 4], "cap" i64[N, 4], "prio",
+    "order" i32[P]}. Kinds:
+      * "fuzz": tests/test_optimizer.py's solver fuzz (a fit mask of ~80 %,
+        scores 0-39, requests of 0.5-3 CPU and 1-3 GiB, a tenth of the
+        slots zero-request, capacities of 2-8 CPU, 4-32 GiB, 2-110 pods),
+        with priority tiers 0-2 and FIFO ranks in order;
+      * "ties": the fuzz with every score equal;
+      * "ranks": the fuzz with repeated FIFO ranks (order drawn with
+        repeats) and tiers 0-3: slots share winner keys;
+      * "long": P >> N uncontended, each node seating P / N equal slots
+        (tests/test_optimizer.py's long run when P = 256, N = 16);
+      * "pack": the profile's tables on pack_config2's cluster, empty:
+        n_live live nodes (4 CPU / 32Gi / 110 pods; the rest padding,
+        fit False) and three templates interleaved (1 CPU / 1Gi, 1 CPU /
+        2Gi, 3 CPU / 3Gi), each scoring every live node alike.
+    The last P // 8 slots of "fuzz", "ties" and "ranks" are padding
+    (all-False fit rows), as the profile's pow2 slot bucket leaves them."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    gib = 1 << 30
+    req = np.zeros((P, 4), np.int64)
+    check = np.ones((P, 4), bool)
+    cap = np.zeros((N, 4), np.int64)
+    prio = np.zeros(P, np.int32)
+    order = np.arange(P, dtype=np.int32)
+    if kind in ("fuzz", "ties", "ranks"):
+        fit = rng.rand(P, N) > 0.2
+        fit[P - P // 8:] = False
+        score = rng.randint(0, 40, size=(P, N)).astype(np.int64)
+        if kind == "ties":
+            score[:] = 7
+        req[:, 0] = rng.choice([500, 1000, 2000, 3000], size=P)
+        req[:, 1] = rng.choice([1, 2, 3], size=P) * gib
+        req[:, 3] = 1
+        zero = rng.rand(P) < 0.1
+        check[zero, :3] = False
+        req[zero, :3] = 0
+        cap[:, 0] = rng.choice([2000, 4000, 8000], size=N)
+        cap[:, 1] = rng.choice([4, 8, 32], size=N) * gib
+        cap[:, 3] = rng.choice([2, 5, 110], size=N)
+        prio = rng.randint(0, 3, size=P).astype(np.int32)
+        if kind == "ranks":
+            prio = rng.randint(0, 4, size=P).astype(np.int32)
+            order = rng.randint(0, max(P // 4, 1), size=P).astype(np.int32)
+    elif kind == "long":
+        fit = np.ones((P, N), bool)
+        score = np.zeros((P, N), np.int64)
+        req[:, 0] = 250
+        req[:, 3] = 1
+        cap[:, 0] = 250 * (P // N)
+        cap[:, 3] = 110
+    elif kind == "pack":
+        n_live = N if n_live is None else n_live
+        fit = np.zeros((P, N), bool)
+        fit[:, :n_live] = True
+        tpl = np.arange(P) % 3
+        reqs = np.array([[1000, 1 * gib, 0, 1], [1000, 2 * gib, 0, 1],
+                         [3000, 3 * gib, 0, 1]], np.int64)
+        req[:] = reqs[tpl]
+        score = np.zeros((P, N), np.int64)
+        score[:, :n_live] = np.array([19, 19, 17])[tpl][:, None]
+        cap[:n_live] = [4000, 32 * gib, 0, 110]
+    else:
+        raise ValueError(f"assign_case: unknown kind {kind!r}")
+    return {"fit": fit, "score": score, "req": req, "commit": req.copy(),
+            "check": check, "cap": cap, "prio": prio, "order": order}
+
+
+#: (label, P, N, kind, live nodes or None, solver) of the K7 checks: the
+#: solver fuzz's shapes (P of 8, 24 and 48 over 8 and 16 nodes, not
+#: powers of two), ties, repeated ranks, a run past 64 rounds, and the
+#: shapes of the optimizing profile's solves on the card: pack_config2's
+#: full solve (2,000 slots in a 2,048 bucket over 1,000 of 1,024 nodes),
+#: the largest solve under the default slot cap at the density node count
+#: (4,096 slots over 5,000 of 8,192 nodes), and beams of 24 and 16 slots
+ASSIGN_CASES = (
+    ("fuzz P=8 N=8", 8, 8, "fuzz", None, "beam"),
+    ("fuzz P=24 N=16", 24, 16, "fuzz", None, "beam"),
+    ("fuzz P=48 N=16", 48, 16, "fuzz", None, "auction"),
+    ("fuzz P=48 N=8", 48, 8, "fuzz", None, "auction"),
+    ("fuzz P=100 N=37", 100, 37, "fuzz", None, "auction"),
+    ("ties P=64 N=16", 64, 16, "ties", None, "auction"),
+    ("ties P=24 N=16", 24, 16, "ties", None, "beam"),
+    ("ranks P=96 N=24", 96, 24, "ranks", None, "auction"),
+    ("ranks P=32 N=8", 32, 8, "ranks", None, "beam"),
+    ("long P=256 N=16", 256, 16, "long", None, "auction"),
+    ("pack P=2048 N=1024", 2048, 1024, "pack", 1000, "auction"),
+    ("pack P=4096 N=8192", 4096, 8192, "pack", 5000, "auction"),
+    ("beam P=32 N=1024", 32, 1024, "pack", 1000, "beam"),
+    ("beam P=16 N=8192", 16, 8192, "pack", 5000, "beam"),
+    ("fuzz beam P=32 N=1024", 32, 1024, "fuzz", None, "beam"),
+)

@@ -14,7 +14,7 @@ standby, quorum), `scheduler` (run_scheduler, the port's daemon on
 as --server) and `extender` (run_extender, the port's device program
 over the scheduler-extender wire protocol). The other components
 (controller-manager, kubelet, proxy, local-up, federation, kubefed) come
-with ROADMAP.md queue 1 item 7, which ports the subsystems they run, as
+with ROADMAP.md queue 1 item 4, which ports the subsystems they run, as
 does the JAX hyperkube's KUBERNETES_TPU_PROFILE stack sampler.
 """
 

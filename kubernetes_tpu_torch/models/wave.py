@@ -77,9 +77,11 @@ The kernel-path profiles of the JAX driver, with its env switches:
   * the bf16 j-table profile (KUBERNETES_TPU_QUANT=bf16): the probe's
     score_mode, K1's bf16 mode; scheduler/algorithm.py shadow-checks it.
 Decisions are identical with every switch on or off (tests/
-test_torch_quant.py, test_torch_pipeline.py). The mesh driver is left
-to a later slice. The run/eligibility/group helpers below are verbatim
-copies of the JAX driver's host code.
+test_torch_quant.py, test_torch_pipeline.py). The optimizing profile
+(scheduler/optimizer/profile.py) drives this driver's setup, probes and
+folds, with the standalone grouped fold _apply_group_packed. The mesh
+driver is left to a later slice. The run/eligibility/group helpers below
+are verbatim copies of the JAX driver's host code.
 """
 
 from __future__ import annotations
@@ -556,7 +558,7 @@ def split_runs(rep_idx: np.ndarray,
 # A verbatim copy (tests/test_torch_isolation.py FUNCTION_COPIES): its
 # docstring's "mesh wave drivers" is the JAX package's. The port has no
 # mesh driver: parallel/mesh.py is not ported (ROADMAP.md queue 1 item
-# 5), so only WaveScheduler calls it here.
+# 2), so only WaveScheduler calls it here.
 def classify_runs(config: SchedulerConfig, snap: ClusterSnapshot,
                   batch: PodBatch, runs, num_values: int, min_run: int,
                   *, device_zoned: bool = False, zoned: bool = False,
@@ -915,6 +917,16 @@ class WaveScheduler:
         carry["class_count"].index_add_(1, pods["class_id"], counts.T)
         carry["last_idx"] += counts.sum()
         return carry
+
+    def _apply_group_packed(self, static, carry, pods, counts):
+        """Standalone dispatch of the grouped fold (the optimizing
+        profile's commit, scheduler/optimizer/profile.py): counts i64[G,
+        N] of the group's uploaded pod rows `pods`, folded by
+        _apply_group_fn. The JAX driver's takes the group's packed buffer
+        and layout; here the rows arrive unpacked."""
+        with phase_timer("replay"):
+            self._count("apply")
+            return self._apply_group_fn(static, carry, pods, counts)
 
     # -- backlog -------------------------------------------------------------
 

@@ -26,8 +26,17 @@ WaveScheduler(quant_mode="off") from the same round-robin counter, and a
 divergence counts scheduler_quant_shadow_divergence_total, takes the
 shadow's picks and sends every later wave to the shadow.
 
-Left out, with the items of ROADMAP.md queue 1 that bring them: the
-mesh driver (item 5) and the optimizing profile (item 4).
+The optimizing profile (profile="optimizing", or KUBERNETES_TPU_PROFILE
+read through scheduler/optimizer.active_profile when profile is None;
+an unknown value warns and takes greedy) wraps the wave driver in
+scheduler/optimizer/profile.OptimizingWaveDriver, built at its first
+wave: one grouped header probe, one joint-assignment solve (K7 on the
+card), host re-validation, one grouped fold and the serial scan for the
+rest, as in the JAX package. The daemon (scheduler/server.py,
+factory.py) reaches it through the environment. The JAX package keeps
+the optimizing profile off its mesh driver with a warning; the port has
+no mesh driver yet (ROADMAP.md queue 1 item 2), so that warning has no
+counterpart here.
 
 It runs on CUDA unless the caller passes device="cpu"; on a host without
 CUDA the default raises instead of carrying on on the CPU.
@@ -55,6 +64,10 @@ from kubernetes_tpu_torch.models.wave import WaveScheduler
 from kubernetes_tpu_torch.oracle.scheduler import FitError
 from kubernetes_tpu_torch.oracle.state import ClusterState
 from kubernetes_tpu_torch.parallel import quant
+from kubernetes_tpu_torch.scheduler.optimizer import (
+    PROFILE_OPTIMIZING,
+    active_profile,
+)
 from kubernetes_tpu_torch.snapshot.encode import (
     SnapshotEncoder,
     pod_feature_key,
@@ -73,7 +86,8 @@ def _listed(lister) -> list:
 class TorchScheduleAlgorithm:
     def __init__(self, device="cuda", min_run: int = 16, config=None,
                  replay=None, cache=None, service_lister=None,
-                 controller_lister=None, replica_set_lister=None):
+                 controller_lister=None, replica_set_lister=None,
+                 profile=None):
         """config: a models/batch SchedulerConfig overriding the default
         provider. replay overrides the wave's host replay engine (a
         testing seam, e.g. models/replay.replay_spec); it also sends
@@ -81,12 +95,19 @@ class TorchScheduleAlgorithm:
         replay. cache: a scheduler/cache.SchedulerCache to schedule from
         in daemon mode, with the listers (`.list()`) of the Services,
         ReplicationControllers and ReplicaSets that SelectorSpread
-        reads."""
+        reads. profile picks the wave driver: "greedy" (default;
+        bit-identical to the serial oracle) or "optimizing" (the
+        joint-packing profile, scheduler/optimizer); None reads
+        KUBERNETES_TPU_PROFILE."""
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
                 "TorchScheduleAlgorithm: CUDA is not available; pass "
                 "device='cpu' to run on the CPU")
+        self._profile = active_profile(profile)
+        # the optimizing profile's driver, wrapping self._wave, built at
+        # its first wave
+        self._opt = None
         # the wave driver, exposed as TPUScheduleAlgorithm exposes its own
         self._wave = WaveScheduler(config=config, min_run=min_run,
                                    device=self.device, replay=replay)
@@ -146,12 +167,20 @@ class TorchScheduleAlgorithm:
         distinct pods (the serial scan). The JAX warmup also walks every
         pod-axis bucket a daemon wave can land in, one compiled program
         each; the port compiles no program per shape, so it has no such
-        walk. A failed build or launch raises (see _warm_one)."""
+        walk. Under the optimizing profile the joint-assignment kernel K7
+        is built too, and the synthetic waves take that profile. A failed
+        build or launch raises (see _warm_one)."""
         if self.device.type == "cuda":
             from kubernetes_tpu_torch.ops import probe_kernel, zreplay_kernel
 
             probe_kernel._lib()
             zreplay_kernel._lib()
+            if self._profile == PROFILE_OPTIMIZING:
+                from kubernetes_tpu_torch.scheduler.optimizer.ops import (
+                    assign_kernel,
+                )
+
+                assign_kernel._lib()
         nodes = [
             Node(
                 metadata=ObjectMeta(name=f"warm-{i:05d}"),
@@ -258,6 +287,14 @@ class TorchScheduleAlgorithm:
             # a shadow-compare divergence already proved the bf16
             # profile unsound for this workload: full width from here on
             driver = self._shadow_wave
+        if self._profile == PROFILE_OPTIMIZING:
+            if self._opt is None:
+                from kubernetes_tpu_torch.scheduler.optimizer.profile import (
+                    OptimizingWaveDriver,
+                )
+
+                self._opt = OptimizingWaveDriver(self._wave)
+            driver = self._opt
         saved_last = self._last_node_index
         chosen, _final, last = driver.schedule_backlog(
             snap, batch, rep_idx, last_node_index=self._last_node_index,

@@ -169,7 +169,7 @@ def _tpu_algorithm_factory(factory_args, device="cuda"):
     _tpu_algorithm_factory: it takes the torch `device` of the
     algorithm, and it builds no mesh, since the port has no
     multi-device driver yet (parallel/mesh.py, ROADMAP.md queue 1 item
-    5); it always returns TorchScheduleAlgorithm with the factory
+    2); it always returns TorchScheduleAlgorithm with the factory
     arguments' scheduler cache and listers, as the JAX factory does off
     the mesh."""
     from kubernetes_tpu_torch.scheduler.algorithm import (

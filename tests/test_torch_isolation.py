@@ -56,6 +56,11 @@ COPIES = (
     "client/informer.py", "client/leaderelection.py", "client/record.py",
     "client/rest.py", "client/transport.py",
     "harness/creator.py", "harness/faults.py",
+    # the optimizing profile's host modules and the controller machinery
+    # its defragmentation controller imports
+    "scheduler/optimizer/__init__.py", "scheduler/optimizer/ops/__init__.py",
+    "scheduler/optimizer/controller/__init__.py",
+    "scheduler/optimizer/controller/defrag.py", "controller/framework.py",
 )
 #: functions the port's own modules keep verbatim from their counterparts
 FUNCTION_COPIES = {
@@ -117,9 +122,11 @@ FUNCTION_COPIES = {
 #: test_torch_wire.py the daemon against the JAX package's). A name "Class.
 #: method" is a method of a top-level class; "<module>" is the module
 #: itself, its docstring saying what it leaves out (parallel/__init__.py
-#: exports quant alone until the mesh slice).
+#: exports quant alone until the mesh slice; controller/__init__.py exports
+#: framework's names alone until the host-only subsystems).
 DEVIATIONS = {
-    ("parallel/__init__.py", "<module>"): "queue 1 item 5",
+    ("parallel/__init__.py", "<module>"): "queue 1 item 2",
+    ("controller/__init__.py", "<module>"): "queue 1 item 4",
     ("scheduler/algorithmprovider.py", "_tpu_algorithm_factory"):
         "TorchScheduleAlgorithm",
     ("scheduler/gang.py", "GangDirector"): "VictimScorer(device=device)",
@@ -195,6 +202,10 @@ def test_import_leaves_jax_unloaded():
         "import kubernetes_tpu_torch.storage.replicated\n"
         "import kubernetes_tpu_torch.parallel.quant\n"
         "import kubernetes_tpu_torch.models.pack\n"
+        "import kubernetes_tpu_torch.scheduler.optimizer.profile\n"
+        "import kubernetes_tpu_torch.scheduler.optimizer.ops.assign_kernel\n"
+        "import kubernetes_tpu_torch.scheduler.optimizer.controller.defrag\n"
+        "import kubernetes_tpu_torch.controller\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'kubernetes_tpu')]\n"
         "assert not bad, bad\n"

@@ -10,8 +10,10 @@ CPU; the daemon on the wire (the port's apiserver, informers and
 SchedulerServer through harness/perf.schedule_pods) against the same run
 on the CPU; K1's bf16 mode against its plain version; and the
 kernel-path profiles (narrowed tables, the pipeline, the bf16 profile
-with its shadow) on the card against the same calls on the CPU. Each
-test skips where there is no CUDA device.
+with its shadow) on the card against the same calls on the CPU; the
+joint-assignment kernel K7 (auction and beam) against its plain
+version, and the optimizing profile on the pack configs against the
+same calls on the CPU. Each test skips where there is no CUDA device.
 
 This module imports only torch and the port, so it also runs on a
 machine without JAX:
@@ -461,3 +463,80 @@ def test_kernel_path_profiles_on_card_match_cpu(cuda_device, monkeypatch):
     assert algo._shadow_gate.checked == 1
     assert algo._shadow_gate.divergence == 0
     assert got == want
+
+
+# -- the optimizing profile: the joint-assignment solve K7 --------------------
+
+
+def assign_inputs(case, device):
+    """A scenarios.ASSIGN_CASES entry's tables on `device`, with the
+    solver's own arguments: -> (tables, prio, order, eps0, rounds)."""
+    from kubernetes_tpu_torch.scheduler.optimizer.ops import assign as A
+
+    label, P, N, kind, live, _solver = case
+    c = S.assign_case(P, N, 5, kind, live)
+    t = {k: torch.as_tensor(v).to(device) for k, v in c.items()}
+    tabs = [t[k] for k in ("fit", "score", "req", "commit", "check", "cap")]
+    return (tabs, t["prio"].to(torch.int32), t["order"].to(torch.int32),
+            A.auction_eps0(c["score"], N), A.auction_rounds(P, N))
+
+
+@pytest.mark.parametrize("case", S.ASSIGN_CASES,
+                         ids=[c[0] for c in S.ASSIGN_CASES])
+def test_assign_kernel_matches_plain_on_card(case, cuda_device):
+    """K7 (the auction, K7a, and the beam, K7b) against its plain version
+    on every ASSIGN_CASES entry: equal owners, dtype and values; each
+    solve one launch, counted under (solver, P, N)."""
+    from kubernetes_tpu_torch.scheduler.optimizer.ops import assign as A
+    from kubernetes_tpu_torch.scheduler.optimizer.ops import (
+        assign_kernel as AK,
+    )
+
+    label, P, N, _kind, _live, solver = case
+    tabs, prio, order, eps0, rounds = assign_inputs(case, cuda_device)
+    before = AK.LAUNCHES_BY_SHAPE.get((solver, P, N), 0)
+    if solver == "auction":
+        got = AK.auction_assign(*tabs, prio, order, eps0, rounds)
+        want = A._auction_assign_fn(rounds, *tabs, prio, order, eps0)
+    else:
+        got = AK.beam_assign(*tabs)
+        want = A._beam_assign_fn(4, 4, *tabs)
+    torch.cuda.synchronize()
+    assert AK.LAUNCHES_BY_SHAPE[(solver, P, N)] == before + 1
+    assert got.dtype == want.dtype == torch.int32
+    assert torch.equal(got, want), label
+
+
+@pytest.mark.parametrize("key", sorted(S.PACK_CONFIGS))
+def test_optimizing_profile_on_card_matches_cpu(key, cuda_device):
+    """A pack config (smoke size) in the greedy and the optimizing
+    profile on the card: names equal to the same call on the CPU, the
+    optimizing arm strictly above greedy in pods scheduled and in
+    utilization, at most 6 dispatches each; the optimizing arm launches
+    K1 and K7."""
+    from kubernetes_tpu_torch.models import batch as B
+    from kubernetes_tpu_torch.scheduler.optimizer.ops import (
+        assign_kernel as AK,
+    )
+
+    cfg = S.PACK_CONFIGS[key](T, smoke=True)
+    arms = {}
+    for prof in ("greedy", "optimizing"):
+        def run(device):
+            algo = TorchScheduleAlgorithm(
+                device=device, profile=prof,
+                config=S.pack_scheduler_config(B, cfg))
+            return algo, algo.schedule_backlog(
+                cfg["pods"], S.pack_state(ClusterState, cfg))
+
+        k1, k7 = PK.LAUNCHES, AK.LAUNCHES
+        algo, got = run(cuda_device)
+        if prof == "optimizing":
+            assert PK.LAUNCHES > k1 and AK.LAUNCHES > k7
+        _cpu, want = run("cpu")
+        assert got == want
+        d = (algo._opt or algo._wave).dispatches
+        assert sum(v for k, v in d.items() if k != "scan_pods") <= 6
+        arms[prof] = S.pack_outcome(cfg["pods"], got, cfg["alloc_mcpu"])
+    assert arms["optimizing"]["scheduled"] > arms["greedy"]["scheduled"]
+    assert arms["optimizing"]["utilization"] > arms["greedy"]["utilization"]

@@ -392,7 +392,7 @@ class TestPodGroupAPI:
     def test_status_subresource_patch_reads_back(self):
         """The status a director PATCHes reads back whole (the JAX test
         reads it through kubectl get/describe, which the port does not
-        have yet: ROADMAP.md queue 1 item 7)."""
+        have yet: ROADMAP.md queue 1 item 4)."""
         _, client = make_control_plane()
         rc = client.resource("podgroups", "default")
         rc.create(PodGroup(metadata=ObjectMeta(name="train"),
@@ -416,7 +416,7 @@ class TestGangEndToEnd:
         """One live control plane covers: atomic gang bind, minMember parking
         with a readable status, and priority preemption unparking a
         high-priority gang (the JAX test's kubectl describe is left
-        out: ROADMAP.md queue 1 item 7)."""
+        out: ROADMAP.md queue 1 item 4)."""
         from kubernetes_tpu_torch.metrics import (
             scheduler_preemption_victims_total,
         )
