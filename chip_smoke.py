@@ -1,7 +1,7 @@
 """Drive the PyTorch/CUDA port on one NVIDIA GPU and check it end to end.
 
     python3 chip_smoke.py [--baseline OLD.cu] [--baseline-k3 OLD.cu]
-                          [--baseline-k6 OLD.cu]
+                          [--baseline-k6 OLD.cu] [--baseline-k7 OLD.cu]
 
 Phases, each printing one JSON line; any failure raises and exits
 non-zero:
@@ -11,7 +11,8 @@ non-zero:
      zreplay_kernel.cu, K3, one report per template instance; csrc/
      preempt_kernel.cu, K6, one report per template instance; csrc/
      assign_kernel.cu, K7, the auction's and the beam's reports; csrc/
-     chain_floor.cu, K3's yardstick) built
+     chain_floor.cu, the yardsticks of K3 and K7: the chain floor at 128,
+     256 and 1,024 threads and the grid-sync floor) built
      with nvcc for sm_90a from the
      sources in this checkout, in parallel, with ptxas's registers, spills
      and shared memory for each and, for K6, its static SASS counts
@@ -61,17 +62,31 @@ non-zero:
      max_abs_err against the plain version and both ptxas and SASS
      reports, on every case;
   3d. K7 vs plain: scheduler/optimizer/ops/assign_kernel.auction_assign
-     (K7a, one cooperative launch) and beam_assign (K7b, one block)
+     (K7a, one cooperative launch) and beam_assign (K7b, one launch)
      against ops/assign._auction_assign_fn and _beam_assign_fn, exact
      equality of owner (dtype and values), on scenarios.ASSIGN_CASES (the
      solver fuzz's shapes, P and N not powers of two, all-equal scores,
      repeated FIFO ranks, a run past 64 rounds, pack_config2's full
      solve at (2,048, 1,024), the largest solve under the default slot
-     cap at the density node count, (4,096, 8,192), and beams at (32,
-     1,024) and (16, 8,192)); on the last four, the kernel's device time
-     (profiler), the plain version's (CUDA events), the byte bound read
-     once and over the rounds run (each round the rows of the slots that
-     bid in it) and the shares;
+     cap at the density node count, (4,096, 8,192), beams at (32, 1,024)
+     and (16, 8,192), an auction over two node tiles with a tie across
+     the edge, clipped and repeated ranks, a beam whose placements free
+     capacity, one that lands every step on one node, a beam at P = 64,
+     and both solvers where used + req wraps) and on ASSIGN_WIDE_CASES
+     (auctions over 49 node tiles and past the tiles shared memory holds),
+     with the auction's path (unique keys or the general claim path),
+     rounds run, grid and shared memory a block (0: node state in device
+     memory); on the K7_TIMED shapes, the kernel's
+     device time (profiler), the plain version's (CUDA events), the byte
+     bound read once and over the rounds run (each round the rows of the
+     slots that bid in it), for the auction the grid-sync bound (the
+     syncs it ran times the grid-sync floor of csrc/chain_floor.cu
+     measured at its grid) and for the beam the chain bound (P times the
+     chain floor of a 128-thread block, its chain's four warps), and the
+     shares; with --baseline-k7, also the K7 built from OLD.cu (the same
+     C interface, e.g. an earlier version) held to the plain version on every
+     case and timed in turns (old, new, new, old) on the K7_TIMED shapes,
+     with baseline_ms and speedup;
   4. main path: the scheduler_perf density shape at the north-star size
      (5,000 nodes of 4 CPU / 32Gi / 110 pods, 50,000 pause pods of
      100m / 500Mi) through TorchScheduleAlgorithm on the card; every pod
@@ -247,6 +262,9 @@ INT32_OPS_PER_S = 33.5e12
 #: K3's block size (csrc/zreplay_kernel.cu THREADS): its chain bound uses
 #: the chain floor of a block this size
 K3_THREADS = 256
+#: the threads of the K7 beam's chain (its four warps, one a beam): its
+#: chain bound uses the chain floor of a block this size
+BEAM_CHAIN_THREADS = 128
 #: cycles of the device sleep that queued_ms puts ahead of its window
 #: (about 20 ms at the H100's clocks)
 SLEEP_CYCLES = 40_000_000
@@ -360,16 +378,19 @@ def queued_ms(fn, reps, inner) -> float:
     return statistics.median(times)
 
 
-def kernel_device_ms(fn, name, n=20, tries=8):
+def kernel_device_ms(fn, name, n=20, tries=8, events=False):
     """-> (mean device time of the kernel `name` per launch, summed device
     time of every kernel per call of fn, in ms, over n calls of fn, each
     launching `name` once, from the profiler's CUPTI trace; the launches
     of `name` that each trace taken recorded, the kept one last). A trace
     is kept only when it accounts for every launch: `name` recorded n
     times and every other kernel a multiple of n times. One that falls
-    short is taken again, up to `tries` traces in all; then it raises.
-    (Traces on the H100 have kept as few as 0 of 20 launches, in phase 3
-    and after it; the rows print `traces`.)"""
+    short is taken again, up to `tries` traces in all; then it raises,
+    or with events=True times the n calls with queued CUDA events
+    (queued_ms: device time with the gaps between launches, and whatever
+    else fn queues) and marks `seen` with "events". (Traces on the H100
+    have kept as few as 0 of 20 launches, in phase 3 and after it, and
+    once none in 8 traces running; the rows print `traces`.)"""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -393,6 +414,9 @@ def kernel_device_ms(fn, name, n=20, tries=8):
         seen.append(count)
         if count == n and whole:
             return total_us / count / 1e3, all_us / n / 1e3, seen
+    if events:
+        ms = queued_ms(fn, reps=5, inner=n)
+        return ms, ms, seen + ["events"]
     raise RuntimeError(f"{tries} profiler traces of {n} launches of {name} "
                        f"recorded {seen} of them")
 
@@ -684,10 +708,10 @@ def k3_reports(lib) -> dict:
 
 
 def phase_chain_floor(lib, steps=50000) -> dict:
-    """K3's chain floor: the time of one step of csrc/chain_floor.cu (one
+    """The chain floor: the time of one step of csrc/chain_floor.cu (one
     block, a block-wide max, a broadcast and one barrier per step) at 256
-    threads (K3's block) and at 1,024, CUDA events over `steps` steps.
-    -> {threads: microseconds per step}."""
+    threads (K3's block), 1,024 and 128 (the K7 beam's chain), CUDA
+    events over `steps` steps. -> {threads: microseconds per step}."""
     import ctypes
 
     fn = ctypes.CDLL(lib).chain_floor_launch
@@ -696,7 +720,7 @@ def phase_chain_floor(lib, steps=50000) -> dict:
                    ctypes.c_void_p]
     out = torch.empty(1, dtype=torch.int64, device="cuda")
     us = {}
-    for threads in (K3_THREADS, 1024):
+    for threads in (K3_THREADS, 1024, BEAM_CHAIN_THREADS):
         def launch():
             err = fn(out.data_ptr(), steps, threads,
                      torch.cuda.current_stream().cuda_stream)
@@ -948,6 +972,8 @@ def phase_k6(VK, S, P, ptxas, old=None):
 K7_TIMED = ("pack P=2048 N=1024", "pack P=4096 N=8192", "beam P=32 N=1024",
             "beam P=16 N=8192")
 K7_MAIN = {"auction": "pack P=2048 N=1024", "beam": "beam P=32 N=1024"}
+#: grid syncs in one run of the grid-sync floor
+GRID_SYNC_STEPS = 2000
 
 
 def assign_bound_ms(P, N) -> float:
@@ -972,11 +998,80 @@ def assign_rounds_bound_ms(P, N, bids, ran) -> float:
     return nbytes / HBM_BYTES_PER_S * 1e3
 
 
+def auction_syncs(bids, ran, general) -> int:
+    """The grid syncs an auction launch ran: one after its set-up, then a
+    round's one (after the bid; the next round seats the winners) or two
+    on the general path (and after the claim), and one in a round
+    without a bid, where it stops."""
+    per = 2 if general else 1
+    stopped = ran and int(bids[ran - 1]) == 0
+    return 1 + (ran - 1) * per + 1 if stopped else 1 + ran * per
+
+
+def assign_sync_bound_ms(syncs, sync_us) -> float:
+    """Least time of an auction launch's grid syncs: `syncs` times the
+    grid-sync floor at its grid (sync_us microseconds each)."""
+    return syncs * sync_us / 1e3
+
+
+def assign_beam_chain_bound_ms(P, chain_us) -> float:
+    """Least time of the beam's chain: P dependent steps, each at least
+    the chain floor of a block of its four warps (chain_us microseconds,
+    BEAM_CHAIN_THREADS)."""
+    return P * chain_us / 1e3
+
+
 def k7_reports(lib) -> dict:
+    """ptxas's reports of lib's K7 kernels: the auction with its node
+    state in shared memory ("auction"; a build with one auction instance
+    names it plainly) and in device memory ("auction_slab", where built),
+    and the beam."""
     from kubernetes_tpu_torch.native.build import ptxas_report
 
-    return {"auction": ptxas_report(lib, "assign_auction_kernel"),
+    return {"auction": (ptxas_report(lib, "assign_auction_kernelILb0E")
+                        or ptxas_report(lib, "assign_auction_kernel")),
+            "auction_slab": ptxas_report(lib, "assign_auction_kernelILb1E"),
             "beam": ptxas_report(lib, "assign_beam_kernel")}
+
+
+#: the C interface a baseline K7 shares with this checkout's
+K7_BASELINE_EXPORTS = ("assign_auction_launch", "assign_auction_scratch_bytes",
+                       "assign_beam_launch")
+
+
+def load_baseline_k7(AK, path):
+    """A K7 library built from another assign_kernel.cu, with the exports
+    it shares with this checkout's declared: its auction runs through
+    AK._launch_auction(lib=), its beam through baseline_beam."""
+    import ctypes
+
+    lib = ctypes.CDLL(path)
+    for name, res, args in AK._EXPORTS:
+        if name in K7_BASELINE_EXPORTS:
+            fn = getattr(lib, name)
+            fn.restype = res
+            fn.argtypes = args
+    return lib
+
+
+def baseline_beam(AK, lib, fit, score, req, commit, check, cap):
+    """K7b of a baseline library whose beam walks the K x N x 4 used
+    table of every beam: it takes that double buffer (2 x K x N x 4 i64)
+    and the choices (2 x K x P i32) -> owner i32[P]."""
+    P, N = fit.shape
+    used = torch.empty((2 * AK.BEAM_K * N * 4,), dtype=torch.int64,
+                       device=fit.device)
+    choice = torch.empty((2 * AK.BEAM_K * P,), dtype=torch.int32,
+                         device=fit.device)
+    owner = torch.empty((P,), dtype=torch.int32, device=fit.device)
+    err = lib.assign_beam_launch(
+        fit.data_ptr(), score.data_ptr(), req.data_ptr(), commit.data_ptr(),
+        check.data_ptr(), cap.data_ptr(), P, N, used.data_ptr(),
+        choice.data_ptr(), owner.data_ptr(),
+        torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"baseline beam launch failed: CUDA error {err}")
+    return owner
 
 
 def k7_inputs(S, A, case, seed):
@@ -990,36 +1085,83 @@ def k7_inputs(S, A, case, seed):
             A.auction_eps0(c["score"], N), A.auction_rounds(P, N))
 
 
-def phase_k7(AK, A, S, ptxas):
+def phase_grid_sync_floor(chain_lib, AK, S) -> dict:
+    """The grid-sync floor at each timed auction shape: a cooperative
+    launch of csrc/chain_floor.cu grid_sync_floor_kernel with the
+    auction's grid, block and dynamic shared memory at that (P, N), doing
+    nothing but GRID_SYNC_STEPS grid syncs (queued CUDA events). ->
+    {(P, N): microseconds per sync}."""
+    import ctypes
+
+    fn = ctypes.CDLL(chain_lib).grid_sync_floor_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    out = torch.empty(1, dtype=torch.int64, device="cuda")
+    us = {}
+    for label, P, N, _kind, _live, solver in S.ASSIGN_CASES:
+        if label not in K7_TIMED or solver != "auction":
+            continue
+        blocks, smem = AK.auction_grid(P, N), AK.auction_smem_bytes(N)
+
+        def launch():
+            err = fn(out.data_ptr(), GRID_SYNC_STEPS, blocks,
+                     AK.AUCTION_THREADS, smem,
+                     torch.cuda.current_stream().cuda_stream)
+            if err != 0:
+                raise RuntimeError(f"grid_sync_floor launch failed: error "
+                                   f"{err}")
+
+        ms = queued_ms(launch, reps=5, inner=1)
+        us[(P, N)] = ms * 1e3 / GRID_SYNC_STEPS
+        emit("grid_sync_floor", P=P, N=N, blocks=blocks,
+             threads=AK.AUCTION_THREADS, smem=smem, steps=GRID_SYNC_STEPS,
+             ms=ms, us_per_sync=us[(P, N)])
+    return us
+
+
+def phase_k7(AK, A, S, ptxas, chain_us, sync_us, old=None):
     """K7 against its plain version on every scenarios.ASSIGN_CASES entry
     (the solver fuzz's shapes, P and N not powers of two, all-equal
     scores, repeated FIFO ranks, a run past 64 rounds, the profile's
-    solve shapes), exact equality of owner, dtype and values; on the
-    K7_TIMED entries the kernel's device time (profiler, every launch of
-    the trace accounted for), the plain version's (CUDA events), the
-    byte bound read once and over the rounds run, the shares and, for the
-    auction, the rounds the launch ran and its cooperative grid. ->
-    ({label: row}, max_abs_err)."""
+    solve shapes, two node tiles, clipped ranks, negative commits, one
+    node, P = 64), exact equality of owner, dtype and values, with the
+    auction's path, rounds run and grid; on the K7_TIMED entries the
+    kernel's device time (profiler, every launch of the trace accounted
+    for; queued CUDA events where no trace keeps them all), the plain version's (CUDA events), the byte bound read once and
+    over the rounds run, the grid-sync bound (auction) or the chain
+    bound (beam), and the shares. chain_us: the chain floor of the
+    beam's chain; sync_us: {(P, N): the grid-sync floor}. old: (library,
+    its k7_reports) of a baseline K7, also held to the plain version on
+    every case and timed in turns old, new, new, old. -> ({label: row},
+    max_abs_err)."""
     results, max_err = {}, 0
-    for seed, case in enumerate(S.ASSIGN_CASES):
+    libs = {"new": None}
+    if old:
+        libs["old"] = old[0]
+    turns = ("old", "new", "new", "old") if old else ("new",)
+    for seed, case in enumerate(S.ASSIGN_CASES + S.ASSIGN_WIDE_CASES):
         label, P, N, kind, _live, solver = case
         tabs, prio, order, eps0, rounds = k7_inputs(S, A, case, seed)
-        ran = None
+        ran = general = None
         if solver == "auction":
-            def kernel():
-                return AK._launch_auction(*tabs, prio, order, eps0, rounds)
+            def kernel(lib=None):
+                return AK._launch_auction(*tabs, prio, order, eps0, rounds,
+                                          lib=lib)
 
             def plain():
                 return A._auction_assign_fn(rounds, *tabs, prio, order, eps0)
 
-            got, bids = AK._launch_auction(*tabs, prio, order, eps0, rounds,
-                                           bids=True)
+            got, bids, flag = AK._launch_auction(*tabs, prio, order, eps0,
+                                                 rounds, bids=True)
             torch.cuda.synchronize()
             ran = AK.rounds_run(bids)
+            general = bool(int(flag[0]))
             symbol = "assign_auction_kernel"
         else:
-            def kernel():
-                return AK._launch_beam(*tabs)
+            def kernel(lib=None):
+                if lib is None:
+                    return AK._launch_beam(*tabs)
+                return baseline_beam(AK, lib, *tabs)
 
             def plain():
                 return A._beam_assign_fn(4, 4, *tabs)
@@ -1028,30 +1170,64 @@ def phase_k7(AK, A, S, ptxas):
             symbol = "assign_beam_kernel"
         want = plain()
         torch.cuda.synchronize()
+
+        def err_of(out):
+            return int((out.to(torch.int64) - want.to(torch.int64))
+                       .abs().max())
+
         equal = got.dtype == want.dtype and torch.equal(got, want)
-        err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+        err = err_of(got)
         max_err = max(max_err, err)
         row = dict(P=P, N=N, kind=kind, solver=solver,
                    assigned=int((got >= 0).sum()), rounds=rounds,
                    rounds_run=ran, ptxas=ptxas[solver])
         if solver == "auction":
-            row["grid"] = AK.auction_grid(P, N)
+            row.update(grid=AK.auction_grid(P, N),
+                       smem=AK.auction_smem_bytes(N),
+                       path="general" if general else "unique",
+                       syncs=auction_syncs(bids, ran, general))
+        if old:
+            old_got = kernel(old[0])
+            torch.cuda.synchronize()
+            row.update(old_equal=bool(old_got.dtype == want.dtype
+                                      and torch.equal(old_got, want)),
+                       old_max_abs_err=err_of(old_got))
         if label in K7_TIMED:
-            ms, _call_ms, seen = kernel_device_ms(kernel, symbol, n=10)
+            times, seen = {"old": [], "new": []}, []
+            for which in turns:
+                ms, _call_ms, traces = kernel_device_ms(
+                    lambda lib=libs[which]: kernel(lib), symbol, n=10,
+                    events=True)
+                times[which].append(ms)
+                seen.append(traces)
+            ms = statistics.mean(times["new"])
             once = assign_bound_ms(P, N)
-            row.update(ms=ms, traces=seen,
+            row.update(ms=ms, new_ms=times["new"], traces=seen,
                        plain_ms=cuda_ms(plain, reps=3, inner=1),
                        bound_ms=once, bound_by="bytes",
                        bound_share=once / ms)
-            if ran is not None:
+            if solver == "auction":
                 rounds_ms = assign_rounds_bound_ms(P, N, bids, ran)
+                sync_ms = assign_sync_bound_ms(row["syncs"], sync_us[(P, N)])
                 row.update(per_round_bound_ms=rounds_ms,
-                           per_round_share=rounds_ms / ms)
+                           per_round_share=rounds_ms / ms,
+                           sync_floor_us=sync_us[(P, N)],
+                           sync_bound_ms=sync_ms, sync_share=sync_ms / ms)
+            else:
+                chain_ms = assign_beam_chain_bound_ms(P, chain_us)
+                row.update(chain_floor_us=chain_us, chain_bound_ms=chain_ms,
+                           chain_share=chain_ms / ms)
+            if old:
+                old_ms = statistics.mean(times["old"])
+                row.update(baseline_ms=old_ms, old_ms=times["old"],
+                           speedup=old_ms / ms, old_ptxas=old[1][solver])
         results[label] = row
         emit("k7_vs_plain", case=label, equal=equal, max_abs_err=err,
              library_call="none", **row)
         if not equal:
             raise AssertionError(f"K7 != plain on {label}")
+        if old and not row["old_equal"]:
+            raise AssertionError(f"baseline K7 != plain on {label}")
     return results, max_err
 
 
@@ -2688,6 +2864,13 @@ def shapes(by_shape: dict) -> list:
             for (J, N, mode), k in sorted(by_shape.items())]
 
 
+#: the per-case keys of K7's entries in the kernels line
+K7_CASE_KEYS = ("P", "N", "ms", "baseline_ms", "speedup", "plain_ms",
+                "bound_ms", "bound_share", "per_round_bound_ms",
+                "per_round_share", "sync_bound_ms", "sync_share",
+                "chain_bound_ms", "chain_share", "rounds_run", "syncs",
+                "path", "grid")
+
 #: the JAX functions K7 replaces, by solver
 K7_REPLACES = {
     "auction": "kubernetes_tpu/scheduler/optimizer/ops/assign.py:61",
@@ -2724,12 +2907,17 @@ def k7_entry(solver, times, err, ptxas, paths) -> dict:
         "bound_by": row["bound_by"],
         "bound_share": row["bound_share"],
         "per_round_bound_ms": row.get("per_round_bound_ms"),
+        "sync_bound_ms": row.get("sync_bound_ms"),
+        "chain_bound_ms": row.get("chain_bound_ms"),
         "rounds_run": row.get("rounds_run"),
-        "cases": {label: {k: r.get(k) for k in (
-            "P", "N", "ms", "plain_ms", "bound_ms", "bound_share",
-            "per_round_bound_ms", "per_round_share", "rounds_run", "grid")}
-            for label, r in times.items()
-            if "ms" in r and r["solver"] == solver},
+        "path": row.get("path"),
+        "baseline_ms": row.get("baseline_ms"),
+        "speedup": row.get("speedup"),
+        "paths": {label: r["path"] for label, r in times.items()
+                  if r["solver"] == solver and "path" in r},
+        "cases": {label: {k: r.get(k) for k in K7_CASE_KEYS}
+                  for label, r in times.items()
+                  if "ms" in r and r["solver"] == solver},
         "ptxas": ptxas[solver],
         "library_ms": None,
     }
@@ -2746,6 +2934,9 @@ def main() -> int:
     ap.add_argument("--baseline-k6", metavar="OLD.cu",
                     help="also time the victim scorer (K6) built from this "
                     "source against this checkout's")
+    ap.add_argument("--baseline-k7", metavar="OLD.cu",
+                    help="also check and time the joint-assignment solve "
+                    "(K7) built from this source against this checkout's")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2795,7 +2986,8 @@ def run(args, jobs) -> int:
               lambda: build_cuda("chain_floor")]
     baselines = [(flag, src, name) for flag, src, name in (
         ("k3", args.baseline_k3, "zreplay_kernel_baseline"),
-        ("k6", args.baseline_k6, "preempt_kernel_baseline")) if src]
+        ("k6", args.baseline_k6, "preempt_kernel_baseline"),
+        ("k7", args.baseline_k7, "assign_kernel_baseline")) if src]
     for _flag, src, name in baselines:
         builds.append(lambda src=src, name=name: build_cuda_file(
             os.path.abspath(src), name))
@@ -2819,9 +3011,11 @@ def run(args, jobs) -> int:
                 "victim_score": k6_ptxas,
                 "assign": k7_ptxas,
                 "chain_floor": {
-                    f"threads={n}": ptxas_report(
+                    **{f"threads={n}": ptxas_report(
                         chain_lib, f"chain_floor_kernelILi{n}E")
-                    for n in (K3_THREADS, 1024)}},
+                       for n in (K3_THREADS, 1024, BEAM_CHAIN_THREADS)},
+                    "grid_sync": ptxas_report(chain_lib,
+                                              "grid_sync_floor_kernel")}},
          c_replay=replay._load_lib() is not None)
 
     times, max_err = phase_kernel(PK, S)
@@ -2843,7 +3037,15 @@ def run(args, jobs) -> int:
         emit("baseline_k6_build", source=args.baseline_k6,
              ptxas=old_k6[1], new_ptxas=k6_ptxas)
     k6_times, k6_err = phase_k6(VK, S, P, k6_ptxas, old_k6)
-    k7_times, k7_err = phase_k7(AK, A, S, k7_ptxas)
+    old_k7 = None
+    if "k7" in old_paths:
+        old_k7 = (load_baseline_k7(AK, old_paths["k7"]),
+                  k7_reports(old_paths["k7"]))
+        emit("baseline_k7_build", source=args.baseline_k7,
+             ptxas=old_k7[1], new_ptxas=k7_ptxas)
+    sync_us = phase_grid_sync_floor(chain_lib, AK, S)
+    k7_times, k7_err = phase_k7(AK, A, S, k7_ptxas,
+                                chain_us[BEAM_CHAIN_THREADS], sync_us, old_k7)
     launches, density_shapes, density_names, density_wall = \
         phase_main_path(PK, ZK, T, ClusterState, TorchScheduleAlgorithm, S)
     z_k1, z_k1_shapes, z_k3, z_k3_shapes = phase_zoned_density(

@@ -1,5 +1,6 @@
-// The chain floor of a one-block pick loop on this card: a yardstick for
-// K3 (csrc/zreplay_kernel.cu), not part of the scheduler's path.
+// The chain floor of a one-block pick loop on this card, and the floor of
+// a grid sync: yardsticks for K3 (csrc/zreplay_kernel.cu) and K7
+// (csrc/assign_kernel.cu), not part of the scheduler's path.
 //
 // A pick loop's steps are sequential: each ends in a block-wide choice
 // that the next step reads. This kernel runs one block doing only that
@@ -8,10 +9,19 @@
 // into every thread, whose value feeds the next step. Its time over
 // `steps` steps, divided by `steps`, is the least time one step of such a
 // loop takes in a block of that many threads; times the picks of a run it
-// is K3's chain bound. The block has 256 threads (K3's own) or 1,024.
-// chip_smoke.py times it with CUDA events.
+// is K3's chain bound. The block has 256 threads (K3's own), 1,024, or
+// 128 (the four warps of the K7 beam's chain).
+//
+// grid_sync_floor_kernel does nothing but `steps` grid syncs of one
+// cooperative launch; launched with the K7 auction's grid, block size and
+// dynamic shared memory (so its blocks sit on the SMs as the auction's
+// do), its time over `steps` is the least time of one of the auction's
+// grid syncs. chip_smoke.py times both with CUDA events.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+namespace cg = cooperative_groups;
 
 typedef long long i64;
 
@@ -41,16 +51,42 @@ __global__ void __launch_bounds__(THREADS, 1) chain_floor_kernel(i64* out,
     if (threadIdx.x == 0) out[0] = v;
 }
 
+__global__ void grid_sync_floor_kernel(i64* out, int steps) {
+    cg::grid_group grid = cg::this_grid();
+    for (int i = 0; i < steps; ++i) grid.sync();
+    if (blockIdx.x == 0 && threadIdx.x == 0) out[0] = steps;
+}
+
 // Plain C interface for ctypes. Returns cudaGetLastError() after the
-// launch (0 == cudaSuccess), or -1 when threads is not 256 or 1,024.
+// launch (0 == cudaSuccess), or -1 when threads is not 128, 256 or 1,024.
 extern "C" int chain_floor_launch(void* out, int steps, int threads,
                                   void* stream) {
     const cudaStream_t s = (cudaStream_t)stream;
-    if (threads == 256)
+    if (threads == 128)
+        chain_floor_kernel<128><<<1, 128, 0, s>>>((i64*)out, steps);
+    else if (threads == 256)
         chain_floor_kernel<256><<<1, 256, 0, s>>>((i64*)out, steps);
     else if (threads == 1024)
         chain_floor_kernel<1024><<<1, 1024, 0, s>>>((i64*)out, steps);
     else
         return -1;
+    return (int)cudaGetLastError();
+}
+
+// A cooperative launch of `blocks` x `threads` with `smem` bytes of
+// dynamic shared memory a block. Returns the launch's error (0 ==
+// cudaSuccess).
+extern "C" int grid_sync_floor_launch(void* out, int steps, int blocks,
+                                      int threads, int smem, void* stream) {
+    cudaError_t err = cudaFuncSetAttribute(
+        grid_sync_floor_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
+    if (err != cudaSuccess) return (int)err;
+    i64* o = (i64*)out;
+    void* args[] = {&o, &steps};
+    err = cudaLaunchCooperativeKernel((const void*)grid_sync_floor_kernel,
+                                      dim3(blocks), dim3(threads), args,
+                                      (size_t)smem, (cudaStream_t)stream);
+    if (err != cudaSuccess) return (int)err;
     return (int)cudaGetLastError();
 }

@@ -1174,9 +1174,29 @@ def assign_case(P, N, seed, kind="fuzz", n_live=None):
       * "pack": the profile's tables on pack_config2's cluster, empty:
         n_live live nodes (4 CPU / 32Gi / 110 pods; the rest padding,
         fit False) and three templates interleaved (1 CPU / 1Gi, 1 CPU /
-        2Gi, 3 CPU / 3Gi), each scoring every live node alike.
-    The last P // 8 slots of "fuzz", "ties" and "ranks" are padding
-    (all-False fit rows), as the profile's pow2 slot bucket leaves them."""
+        2Gi, 3 CPU / 3Gi), each scoring every live node alike;
+      * "clip": the fuzz with every even slot's order far below 0, so
+        P - order clips at 2^16 - 1 and those slots share the key's low
+        bits (the auction's general path);
+      * "edge": "ties" where slots 0-2 are set up so that slot 2's best
+        two nodes tie in round 1 on either side of the K7 auction
+        kernel's first node-tile edge (columns e - 1 and e, e = 1,088 at
+        N = 2,049; N // 2 when N fits one tile): slots 0 and 1 take them
+        in round 0 with bids one apart, and no other slot fits them;
+      * "long_ranks": "long" with each FIFO rank held by two slots;
+      * "wide": the fuzz with memory requests of 2^61 - 3 x 2^61 bytes on
+        nodes of 2^62 bytes to 2^63 - 1, so that used + req wraps in the
+        int64 arithmetic the solvers share (the auction kernel's tiles
+        then hold used and cap, not their difference);
+      * "negcommit": the fuzz on nodes of 2-4 CPU where every third slot
+        commits the negative of its request, so a placement can make a
+        node feasible that was not (the beam's touched nodes);
+      * "onenode": every node fits, one node (N // 3) scores 100 for
+        every slot and holds them all, the rest score 0-39: the best
+        beam lands every step on that node.
+    The last P // 8 slots of "fuzz", "ties", "ranks", "clip", "negcommit",
+    "edge" and "wide" are padding (all-False fit rows), as the profile's pow2
+    slot bucket leaves them."""
     import numpy as np
 
     rng = np.random.RandomState(seed)
@@ -1186,11 +1206,12 @@ def assign_case(P, N, seed, kind="fuzz", n_live=None):
     cap = np.zeros((N, 4), np.int64)
     prio = np.zeros(P, np.int32)
     order = np.arange(P, dtype=np.int32)
-    if kind in ("fuzz", "ties", "ranks"):
+    if kind in ("fuzz", "ties", "ranks", "clip", "negcommit", "edge",
+                "wide"):
         fit = rng.rand(P, N) > 0.2
         fit[P - P // 8:] = False
         score = rng.randint(0, 40, size=(P, N)).astype(np.int64)
-        if kind == "ties":
+        if kind in ("ties", "edge"):
             score[:] = 7
         req[:, 0] = rng.choice([500, 1000, 2000, 3000], size=P)
         req[:, 1] = rng.choice([1, 2, 3], size=P) * gib
@@ -1205,13 +1226,49 @@ def assign_case(P, N, seed, kind="fuzz", n_live=None):
         if kind == "ranks":
             prio = rng.randint(0, 4, size=P).astype(np.int32)
             order = rng.randint(0, max(P // 4, 1), size=P).astype(np.int32)
-    elif kind == "long":
+        if kind == "clip":
+            order[::2] = -70000 - order[::2]
+        if kind == "negcommit":
+            cap[:, 0] = 2000
+        if kind == "wide":
+            req[:, 1] = rng.choice([1, 2, 3], size=P) * (1 << 61)
+            req[zero, 1] = 0
+            cap[:, 1] = rng.choice([1 << 62, 3 << 61,
+                                    np.iinfo(np.int64).max], size=N)
+        if kind == "edge":
+            tiles = -(-N // 2048)
+            e = -(-(-(-N // tiles)) // 64) * 64 if tiles > 1 else N // 2
+            a, b, z = e - 1, e, 5
+            fit[:, [a, b]] = False
+            fit[:3] = False
+            fit[0, [a, z]] = fit[1, [b, z]] = fit[2, [a, b]] = True
+            score[:3] = 0
+            score[0, a] = score[1, b] = 1
+            req[:3] = [500, gib, 0, 1]
+            check[:3] = True
+            cap[[a, b, z]] = [8000, 32 * gib, 0, 110]
+            prio[:3] = 0
+    elif kind in ("long", "long_ranks"):
         fit = np.ones((P, N), bool)
         score = np.zeros((P, N), np.int64)
         req[:, 0] = 250
         req[:, 3] = 1
         cap[:, 0] = 250 * (P // N)
         cap[:, 3] = 110
+        if kind == "long_ranks":
+            order = order // 2
+    elif kind == "onenode":
+        fit = np.ones((P, N), bool)
+        score = rng.randint(0, 40, size=(P, N)).astype(np.int64)
+        score[:, N // 3] = 100
+        req[:, 0] = rng.choice([500, 1000, 2000], size=P)
+        req[:, 1] = gib
+        req[:, 3] = 1
+        cap[:, 0] = 4000
+        cap[:, 1] = 32 * gib
+        cap[:, 3] = 110
+        cap[N // 3, 0] = 2000 * P
+        cap[N // 3, 1] = P * gib
     elif kind == "pack":
         n_live = N if n_live is None else n_live
         fit = np.zeros((P, N), bool)
@@ -1225,7 +1282,10 @@ def assign_case(P, N, seed, kind="fuzz", n_live=None):
         cap[:n_live] = [4000, 32 * gib, 0, 110]
     else:
         raise ValueError(f"assign_case: unknown kind {kind!r}")
-    return {"fit": fit, "score": score, "req": req, "commit": req.copy(),
+    commit = req.copy()
+    if kind == "negcommit":
+        commit[::3] = -req[::3]
+    return {"fit": fit, "score": score, "req": req, "commit": commit,
             "check": check, "cap": cap, "prio": prio, "order": order}
 
 
@@ -1235,7 +1295,12 @@ def assign_case(P, N, seed, kind="fuzz", n_live=None):
 #: shapes of the optimizing profile's solves on the card: pack_config2's
 #: full solve (2,000 slots in a 2,048 bucket over 1,000 of 1,024 nodes),
 #: the largest solve under the default slot cap at the density node count
-#: (4,096 slots over 5,000 of 8,192 nodes), and beams of 24 and 16 slots
+#: (4,096 slots over 5,000 of 8,192 nodes), and beams of 24 and 16 slots;
+#: then an auction over two node tiles of the kernel (N = 2,049, equal
+#: scores, a tie across the tile edge), clipped FIFO ranks and a long run
+#: with repeated ranks (the general path), a beam whose placements free
+#: capacity, one whose every step lands on one node, a beam at the
+#: kernel's largest P, 64, and both solvers where used + req wraps
 ASSIGN_CASES = (
     ("fuzz P=8 N=8", 8, 8, "fuzz", None, "beam"),
     ("fuzz P=24 N=16", 24, 16, "fuzz", None, "beam"),
@@ -1252,4 +1317,21 @@ ASSIGN_CASES = (
     ("beam P=32 N=1024", 32, 1024, "pack", 1000, "beam"),
     ("beam P=16 N=8192", 16, 8192, "pack", 5000, "beam"),
     ("fuzz beam P=32 N=1024", 32, 1024, "fuzz", None, "beam"),
+    ("edge P=40 N=2049", 40, 2049, "edge", None, "auction"),
+    ("clip P=48 N=16", 48, 16, "clip", None, "auction"),
+    ("long ranks P=256 N=16", 256, 16, "long_ranks", None, "auction"),
+    ("negcommit P=24 N=16", 24, 16, "negcommit", None, "beam"),
+    ("onenode P=32 N=64", 32, 64, "onenode", None, "beam"),
+    ("fuzz beam P=64 N=128", 64, 128, "fuzz", None, "beam"),
+    ("wide P=48 N=16", 48, 16, "wide", None, "auction"),
+    ("wide beam P=24 N=16", 24, 16, "wide", None, "beam"),
+)
+
+#: auctions wider than ASSIGN_CASES, checked on the card only: past 32
+#: node tiles (a row's partials folded several to a lane) and past the
+#: tiles an H100 holds in shared memory (132 SMs x 2,048 nodes; beyond,
+#: one tile a co-resident block, its node state in device memory)
+ASSIGN_WIDE_CASES = (
+    ("tiles P=64 N=100000", 64, 100000, "fuzz", None, "auction"),
+    ("slab P=64 N=270337", 64, 270337, "fuzz", None, "auction"),
 )

@@ -14,15 +14,29 @@ req, commit, check, cap) and return owner i32[P], a node per slot or -1
 - LAUNCHES counts kernel launches, one a solve (incremented only where
   a kernel is launched); LAUNCHES_BY_SHAPE counts them by (solver, P,
   N), solver "auction" or "beam".
-- auction_grid(P, N): the blocks of the auction's cooperative launch.
+- auction_grid(P, N): the blocks of the auction's cooperative launch;
+  auction_smem_bytes(N): its dynamic shared memory a block (0 where the
+  tiles' node state lies in device memory, past 270,336 nodes on an
+  H100).
 
 The auction is ONE cooperative launch (cudaLaunchCooperativeKernel, the
-grid at most the co-resident limit) whose phases a round (bid, claim,
-update) are separated by grid syncs; it stops after a round in which no
-slot bid. The beam is one block walking the slots in order. Bound on the
-card: bytes, the tables read once (chip_smoke.assign_bound_ms); the
-auction re-reads an unassigned slot's rows every round. See the kernel
-source.
+grid at most the co-resident limit) whose rounds are a bid and one grid
+sync when the slots' keys are unique (bid, sync, claim, sync when they
+repeat): each block keeps a tile of the node state in shared memory for
+the whole launch and seats the last round's winners on it as a round
+starts, and a round's slots are spread over every warp. It stops after
+a round in which no slot bid. The beam is one launch: a block a slot
+sorts the slot's best nodes, then the last block walks the slots with
+one warp a beam. Bounds on the card (chip_smoke.py): bytes,
+the tables read once (assign_bound_ms) and the rows of the slots that
+bid in each round (assign_rounds_bound_ms); the auction's grid syncs
+(assign_sync_bound_ms); the beam's chain of P steps
+(assign_beam_chain_bound_ms). See the kernel source.
+
+The auction's C interface is the same as that of the kernel it
+replaced, so an earlier build's auction runs through _launch_auction
+(`lib=`, a library with assign_auction_scratch_bytes and
+assign_auction_launch declared).
 """
 
 from __future__ import annotations
@@ -43,6 +57,8 @@ I64 = torch.int64
 #: the beam the kernel is built for (csrc/assign_kernel.cu BEAM_K, BEAM_C)
 BEAM_K = 4
 BEAM_C = 4
+#: threads a block of the auction (csrc/assign_kernel.cu AUCTION_THREADS)
+AUCTION_THREADS = 512
 
 #: kernel launches since the last reset (set to 0 to reset)
 LAUNCHES = 0
@@ -52,24 +68,29 @@ LAUNCHES_BY_SHAPE: dict = {}
 
 _LIB = None
 
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_longlong
+#: the library's exports: (name, result type, argument types)
+_EXPORTS = (
+    ("assign_auction_launch", _I, [_P] * 8 + [_L, _I, _I, _I, _P, _P, _P]),
+    ("assign_auction_scratch_bytes", _L, [_I] * 3),
+    ("assign_auction_bids_offset", _L, [_I] * 3),
+    ("assign_auction_smem_bytes", _I, [_I]),
+    ("assign_auction_grid", _I, [_I] * 2),
+    ("assign_beam_launch", _I, [_P] * 6 + [_I, _I, _P, _P, _P, _P]),
+    ("assign_beam_scratch_bytes", _L, [_I] * 2),
+    ("assign_beam_max_slots", _I, []),
+)
+
 
 def load(path: str) -> ctypes.CDLL:
     """Load a built K7 library and declare its C interface."""
     lib = ctypes.CDLL(path)
-    p = ctypes.c_void_p
-    i = ctypes.c_int
-    fn = lib.assign_auction_launch
-    fn.restype = i
-    fn.argtypes = [p] * 8 + [ctypes.c_longlong, i, i, i, p, p, p]
-    fn = lib.assign_auction_scratch_bytes
-    fn.restype = ctypes.c_longlong
-    fn.argtypes = [i, i, i]
-    fn = lib.assign_auction_grid
-    fn.restype = i
-    fn.argtypes = [i, i]
-    fn = lib.assign_beam_launch
-    fn.restype = i
-    fn.argtypes = [p] * 6 + [i, i, p, p, p, p]
+    for name, res, args in _EXPORTS:
+        fn = getattr(lib, name)
+        fn.restype = res
+        fn.argtypes = args
     return lib
 
 
@@ -92,6 +113,18 @@ def auction_grid(P: int, N: int) -> int:
     """Blocks of the auction's cooperative launch at (P, N) on the
     current card (0 when it cannot launch cooperatively)."""
     return int(_lib().assign_auction_grid(int(P), int(N)))
+
+
+def auction_smem_bytes(N: int) -> int:
+    """Dynamic shared memory a block of the auction takes at N nodes: its
+    tile's node state, or 0 where the tiles outnumber the co-resident
+    blocks and that state lies in device memory."""
+    return int(_lib().assign_auction_smem_bytes(int(N)))
+
+
+def beam_max_slots() -> int:
+    """The beam kernel's largest P."""
+    return int(_lib().assign_beam_max_slots())
 
 
 def _check(name: str, t: torch.Tensor, dtype, shape, device) -> None:
@@ -125,15 +158,17 @@ def _count(solver: str, P: int, N: int) -> None:
 
 
 def _launch_auction(fit, score, req, commit, check, cap, prio, order,
-                    eps0: int, rounds: int, bids=False):
-    """Launch K7a -> owner i32[P], or with bids=True (owner, bids
-    i32[rounds]):
-    the slots that bid in each round, zero from the round the kernel
-    stopped in (a view of its scratch, valid once the launch is done)."""
+                    eps0: int, rounds: int, bids=False, lib=None):
+    """Launch K7a (of lib; this checkout's by default) -> owner i32[P],
+    or with bids=True (owner, bids i32[rounds], general i32[1]): the
+    slots that bid in each round, zero from the round the kernel stopped
+    in, and 1 when the launch took the general (claim) path for repeated
+    keys (views of its scratch, valid once the launch is done; bids=True
+    needs a library that exports where they lie)."""
     device, P, N = _check_tables(fit, score, req, commit, check, cap)
     _check("prio", prio, I32, (P,), device)
     _check("order", order, I32, (P,), device)
-    lib = _lib()
+    lib = lib or _lib()
     owner = torch.empty((P,), dtype=I32, device=device)
     nbytes = int(lib.assign_auction_scratch_bytes(P, N, int(rounds)))
     scratch = torch.empty(((nbytes + 7) // 8,), dtype=I64, device=device)
@@ -150,10 +185,9 @@ def _launch_auction(fit, score, req, commit, check, cap, prio, order,
     _count("auction", P, N)
     if not bids:
         return owner
-    # the scratch's i32 region follows price, used, win_key, bid and key
-    # (6 N + 2 P i64): win_p[N], n1[P], then bids[rounds]
-    start = 2 * (6 * N + 2 * P) + N + P
-    return owner, scratch.view(I32)[start:start + int(rounds)]
+    start = int(lib.assign_auction_bids_offset(P, N, int(rounds))) // 4
+    state = scratch.view(I32)[start:start + int(rounds) + 1]
+    return owner, state[:int(rounds)], state[int(rounds):]
 
 
 def rounds_run(bids: torch.Tensor) -> int:
@@ -164,19 +198,23 @@ def rounds_run(bids: torch.Tensor) -> int:
 
 
 def _launch_beam(fit, score, req, commit, check, cap):
-    """Launch K7b -> owner i32[P]."""
+    """Launch K7b -> owner i32[P]. Raises above the kernel's largest
+    P."""
     device, P, N = _check_tables(fit, score, req, commit, check, cap)
+    lib = _lib()
+    limit = beam_max_slots()
+    if P > limit:
+        raise ValueError(f"beam_assign: P={P} slots, the kernel takes at "
+                         f"most {limit}")
     owner = torch.empty((P,), dtype=I32, device=device)
-    used = torch.empty((2 * BEAM_K * N * RES_ROWS,), dtype=I64,
-                       device=device)
-    choice = torch.empty((2 * BEAM_K * P,), dtype=I32, device=device)
+    nbytes = int(lib.assign_beam_scratch_bytes(P, N))
+    scratch = torch.empty(((nbytes + 7) // 8,), dtype=I64, device=device)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = _lib().assign_beam_launch(
+        err = lib.assign_beam_launch(
             fit.data_ptr(), score.data_ptr(), req.data_ptr(),
             commit.data_ptr(), check.data_ptr(), cap.data_ptr(), int(P),
-            int(N), used.data_ptr(), choice.data_ptr(), owner.data_ptr(),
-            stream)
+            int(N), scratch.data_ptr(), None, owner.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"assign beam kernel launch failed: CUDA error "
                            f"{err}")
@@ -203,8 +241,9 @@ def auction_assign(fit, score, req, commit, check, cap, prio, order,
 
 def beam_assign(fit, score, req, commit, check, cap):
     """-> owner i32[P] of the top-BEAM_K beam (BEAM_C candidates a beam)
-    over the same tables as auction_assign. CUDA tensors launch K7b; CPU
-    tensors run the plain version; any other device raises."""
+    over the same tables as auction_assign. CUDA tensors launch K7b (P at
+    most beam_max_slots(), 64); CPU tensors run the plain version; any
+    other device raises."""
     device = fit.device
     if device.type == "cpu":
         return _beam_assign_fn(BEAM_K, BEAM_C, fit, score, req, commit,

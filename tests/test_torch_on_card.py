@@ -481,12 +481,14 @@ def assign_inputs(case, device):
             A.auction_eps0(c["score"], N), A.auction_rounds(P, N))
 
 
-@pytest.mark.parametrize("case", S.ASSIGN_CASES,
-                         ids=[c[0] for c in S.ASSIGN_CASES])
+@pytest.mark.parametrize(
+    "case", S.ASSIGN_CASES + S.ASSIGN_WIDE_CASES,
+    ids=[c[0] for c in S.ASSIGN_CASES + S.ASSIGN_WIDE_CASES])
 def test_assign_kernel_matches_plain_on_card(case, cuda_device):
     """K7 (the auction, K7a, and the beam, K7b) against its plain version
-    on every ASSIGN_CASES entry: equal owners, dtype and values; each
-    solve one launch, counted under (solver, P, N)."""
+    on every ASSIGN_CASES and ASSIGN_WIDE_CASES entry: equal owners,
+    dtype and values; each solve one launch, counted under (solver, P,
+    N)."""
     from kubernetes_tpu_torch.scheduler.optimizer.ops import assign as A
     from kubernetes_tpu_torch.scheduler.optimizer.ops import (
         assign_kernel as AK,
@@ -505,6 +507,96 @@ def test_assign_kernel_matches_plain_on_card(case, cuda_device):
     assert AK.LAUNCHES_BY_SHAPE[(solver, P, N)] == before + 1
     assert got.dtype == want.dtype == torch.int32
     assert torch.equal(got, want), label
+
+
+def test_assign_auction_path_follows_the_ranks_on_card(cuda_device):
+    """K7a takes the unique-key path where clip(P - order) is distinct
+    (the pack solve) and the general claim path where it repeats
+    ("ranks", clipped ranks), each equal to its plain version."""
+    from kubernetes_tpu_torch.scheduler.optimizer.ops import assign as A
+    from kubernetes_tpu_torch.scheduler.optimizer.ops import (
+        assign_kernel as AK,
+    )
+
+    cases = {c[0]: c for c in S.ASSIGN_CASES}
+    for label, general in (("pack P=2048 N=1024", False),
+                           ("ranks P=96 N=24", True),
+                           ("clip P=48 N=16", True)):
+        tabs, prio, order, eps0, rounds = assign_inputs(cases[label],
+                                                        cuda_device)
+        got, bids, flag = AK._launch_auction(*tabs, prio, order, eps0,
+                                             rounds, bids=True)
+        want = A._auction_assign_fn(rounds, *tabs, prio, order, eps0)
+        torch.cuda.synchronize()
+        assert bool(int(flag[0])) == general, label
+        assert 1 <= AK.rounds_run(bids) <= rounds
+        assert torch.equal(got, want), label
+
+
+def test_assign_auction_keeps_node_state_in_device_memory_past_the_smem_tiles(
+        cuda_device):
+    """K7a keeps a tile of at most 2,048 nodes a block in shared memory
+    while the tiles fit the co-resident blocks (one an SM); one node more
+    and each block's tile lies in device memory (no dynamic shared
+    memory), and the solve still equals its plain version."""
+    from kubernetes_tpu_torch.scheduler.optimizer.ops import assign as A
+    from kubernetes_tpu_torch.scheduler.optimizer.ops import (
+        assign_kernel as AK,
+    )
+
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    edge = sms * 2048
+    assert AK.auction_smem_bytes(edge) == 2048 * 104
+    assert AK.auction_smem_bytes(edge + 1) == 0
+    assert 1 <= AK.auction_grid(64, edge + 1) <= sms
+    case = ("edge", 24, edge + 1, "fuzz", None, "auction")
+    tabs, prio, order, eps0, rounds = assign_inputs(case, cuda_device)
+    got = AK.auction_assign(*tabs, prio, order, eps0, rounds)
+    want = A._auction_assign_fn(rounds, *tabs, prio, order, eps0)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def test_assign_beam_launches_on_two_streams_at_once(cuda_device):
+    """Two K7b launches in flight on two streams each take their own
+    phase-A ticket (in their launch's scratch): both equal the plain
+    version."""
+    from kubernetes_tpu_torch.scheduler.optimizer.ops import assign as A
+    from kubernetes_tpu_torch.scheduler.optimizer.ops import (
+        assign_kernel as AK,
+    )
+
+    cases = [("a", 32, 1024, "fuzz", None, "beam"),
+             ("b", 64, 128, "ties", None, "beam")]
+    inputs = [assign_inputs(c, cuda_device)[0] for c in cases]
+    want = [A._beam_assign_fn(4, 4, *tabs) for tabs in inputs]
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(cuda_device) for _ in cases]
+    for _ in range(20):
+        got = []
+        for st, tabs in zip(streams, inputs):
+            with torch.cuda.stream(st):
+                got.append(AK.beam_assign(*tabs))
+        torch.cuda.synchronize()
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+def test_assign_beam_refuses_more_slots_than_it_takes(cuda_device):
+    """K7b takes at most beam_max_slots() (64) slots; the wrapper raises
+    above it and launches nothing."""
+    from kubernetes_tpu_torch.scheduler.optimizer.ops import (
+        assign_kernel as AK,
+    )
+
+    assert AK.beam_max_slots() == 64
+    P = AK.beam_max_slots() + 1
+    c = S.assign_case(P, 16, 0, "fuzz")
+    t = {k: torch.as_tensor(v).to(cuda_device) for k, v in c.items()}
+    tabs = [t[k] for k in ("fit", "score", "req", "commit", "check", "cap")]
+    before = AK.LAUNCHES
+    with pytest.raises(ValueError):
+        AK.beam_assign(*tabs)
+    assert AK.LAUNCHES == before
 
 
 @pytest.mark.parametrize("key", sorted(S.PACK_CONFIGS))
