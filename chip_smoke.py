@@ -208,11 +208,34 @@ non-zero:
      padded to 1,024: the auction's tie rotation runs over the padding)
      and whole on 1,024 nodes, a gang of 1,001 x 3 CPU comes back all
      None and a 24-pod wave takes the beam (K7b), each equal to the CPU;
+  14. the mesh (parallel/mesh, parallel/resident; every shard on cuda:0,
+     the one card): (a) the row scatter K8 (parallel/resident_kernel.
+     scatter_rows) against its plain version, shard by shard, exact, on
+     scenarios.SCATTER_CASES (every dtype pair the snapshot places, the
+     node axis first and second, 2-D rows, off-shard and padded rows, M
+     = 64 and 1,024, 4 x 2,048 and 1 x 8,192 nodes); (b) phase 4's
+     density shape through TorchScheduleAlgorithm(mesh=...) at 4 shards
+     and at 1: names equal to phase 4's, K1 launched at the shard width
+     (2,048 at 4 shards), the wall after a warm-up call, the idle share
+     and the dispatch tally; (c) that backlog in MESH_WAVES waves at 4
+     shards on the resident state (reuse="auto", binds between waves)
+     beside a reship run and one device in lockstep: steady waves ship
+     no table bytes and keep every resident tensor's storage; then a
+     churn wave (labels and allocatable on MESH_CHURN_NODES nodes, one
+     node removed inside the bucket) launches K8 once for each shard
+     owning a changed row, names equal to the reship run's and one
+     device's; each of those launches is held against the plain version
+     on the tables as they were before it, and the shipment (as the
+     resident state built it: rows at the placed dtypes) is timed with
+     its byte bound, the plain version and the index_copy_ calls that
+     make the same update; (d) MeshBatchScheduler at 4 shards on phase
+     5's mixed scenario equal to the single-device scan;
   11. the kernels line, with the launch counts of each path it drove
      (K1's bf16 mode as its own entry, resource_probe_bf16: phase 12's
      bf16 arms are its path; K7's auction and beam as assign_auction and
-     assign_beam: phase 13 is their path); then nvidia-smi's line, then
-     the result line {"ok": true, "device": {...}}.
+     assign_beam: phase 13 is their path; K1's mesh paths; K8 as
+     resident_scatter, the churn wave its path); then nvidia-smi's line,
+     then the result line {"ok": true, "device": {...}}.
 
 Every idle share comes from a profiler trace kept only when its K1, K3,
 K6 and K7 events equal the launches the wrappers counted during the
@@ -2849,6 +2872,469 @@ def phase_profiles(PK, S, TorchScheduleAlgorithm, jobs):
     return k1_bf16, by_shape
 
 
+# -- phase 14: the mesh drivers ------------------------------------------------
+
+#: phase 14: the shards of the mesh phases, all on cuda:0 (the card is
+#: one), and (nodes, pods) of 14b and 14c: phase 4's density shape
+MESH_SHARDS = (4, 1)
+MESH_SIZE = (5000, 50000)
+MESH_DEVICE = "cuda:0"
+#: 14c: the density backlog's waves through the resident state, and the
+#: nodes whose labels and allocatable change in the churn wave
+MESH_WAVES = 10
+MESH_CHURN_NODES = 50
+def k8_inputs(S, case, seed=7):
+    """One SCATTER_CASES entry on the card: -> (case, buffer, shard
+    tables {name: tensor} a shard, names, axes, narrowed)."""
+    label, shards, n, M, k, fields = case
+    c = S.scatter_case(shards, n, M, k, seed=seed, fields=fields)
+    names = [f[0] for f in c["fields"]]
+    axes = [f[1] for f in c["fields"]]
+    narrowed = frozenset(f[0] for f in c["fields"] if f[2])
+    buf = torch.from_numpy(c["buf"]).cuda()
+    tabs = [{nm: torch.from_numpy(v).cuda()
+             for nm, v in S.scatter_shard_tables(c, s).items()}
+            for s in range(shards)]
+    return c, buf, tabs, names, axes, narrowed
+
+
+def k8_abs_err(got, want):
+    """The largest absolute difference of two scattered tables (numpy
+    or tensors; NaN where both hold NaN counts as equal)."""
+    import numpy as np
+
+    got, want = (np.asarray(a.cpu().numpy() if torch.is_tensor(a) else a)
+                 for a in (got, want))
+    if got.size == 0:
+        return 0
+    if got.dtype.kind == "f":
+        both = np.isnan(got) & np.isnan(want)
+        d = np.where(both, 0.0, got.astype(np.float64)
+                     - want.astype(np.float64))
+        return float(np.abs(d).max())
+    return int(np.abs(got.astype(np.int64) - want.astype(np.int64)).max())
+
+
+def phase_k8(RK, S):
+    """14a: K8 against its plain version on every SCATTER_CASES entry
+    (rows at host widths: every dtype pair the kernel widens), shard by
+    shard, exact and equal to the expected update. K8 is timed on the
+    churn wave's own shipment (phase_k8_churn). -> max_abs_err."""
+    import numpy as np
+
+    rows, err = [], 0
+    for case in S.SCATTER_CASES:
+        label = case[0]
+        c, buf, tabs, names, axes, narrowed = k8_inputs(S, case)
+        n = c["n_per_shard"]
+        plain = [{nm: t.clone() for nm, t in tb.items()} for tb in tabs]
+        for s in range(c["shards"]):
+            RK.scatter_rows(c["layout"], buf, names, axes,
+                            [tabs[s][nm] for nm in names], n, s * n,
+                            narrowed)
+            RK.scatter_rows_plain(c["layout"], buf, names, axes,
+                                  [plain[s][nm] for nm in names], n, s * n,
+                                  narrowed)
+        torch.cuda.synchronize()
+        case_err = 0
+        for nm, ax in zip(names, axes):
+            got = np.concatenate([tb[nm].cpu().numpy() for tb in tabs],
+                                 axis=ax)
+            want = np.concatenate([pl[nm].cpu().numpy() for pl in plain],
+                                  axis=ax)
+            case_err = max(case_err, k8_abs_err(got, want))
+            nan = got.dtype.kind == "f"
+            if not (np.array_equal(got, want, equal_nan=nan)
+                    and np.array_equal(got, c["expected"][nm],
+                                       equal_nan=nan)):
+                raise AssertionError(f"K8 {label}: field {nm} differs from "
+                                     f"its plain version")
+        err = max(err, case_err)
+        rows.append({"label": label, "shards": c["shards"],
+                     "n_per_shard": n, "M": c["M"], "rows": len(c["rows"]),
+                     "fields": len(names), "max_abs_err": case_err,
+                     "matches_plain": True})
+    emit("k8_vs_plain", cases=rows)
+    return err
+
+
+def shipment_bound_bytes(RK, shipment) -> int:
+    """The bytes K8 must move for a captured shipment (one entry a
+    launch): each shard's owned rows read once at their shipped widths
+    and written once at their placed widths, and __idx__ read once by
+    each launch."""
+    import numpy as np
+
+    total = 0
+    for call in shipment:
+        seg = RK._segments(call["layout"])
+        idx = call["idx"]
+        n, off = call["n_per_shard"], call["offset"]
+        owned = int(((idx >= off) & (idx < off + n)).sum())
+        for nm, dst in zip(call["names"], call["after"]):
+            elems = dst.numel() // n
+            total += owned * elems * (np.dtype(seg[nm][1]).itemsize
+                                      + dst.element_size())
+        total += idx.size * 8
+    return total
+
+
+def phase_k8_churn(RK, shards, shipment):
+    """14c's K8 shipment on the card: each captured launch's plain
+    version on the tables as they were before it equals what K8 left
+    (exact), then the shipment's device time (one launch an owning
+    shard, on copies of the tables: the same rows land again) beside
+    its byte bound, the plain version and the index_copy_ calls that
+    make the same update. -> (the row, max_abs_err)."""
+    from kubernetes_tpu_torch.models.pack import unpack
+
+    err = 0
+    for call in shipment:
+        call["idx"] = unpack(call["layout"], call["buf"],
+                             call["narrowed"])["__idx__"].cpu().numpy()
+        args = (call["layout"], call["buf"], call["names"], call["axes"])
+        tail = (call["n_per_shard"], call["offset"], call["narrowed"])
+        plain = [t.clone() for t in call["before"]]
+        RK.scatter_rows_plain(*args, plain, *tail)
+        for nm, got, want in zip(call["names"], call["after"], plain):
+            e = k8_abs_err(got, want)
+            err = max(err, e)
+            if not torch.equal(got, want):
+                raise AssertionError(f"K8 on the churn wave: field {nm} of "
+                                     f"shard offset {call['offset']} "
+                                     f"differs from its plain version")
+    tabs = [[t.clone() for t in call["after"]] for call in shipment]
+    plain_tabs = [[t.clone() for t in call["after"]] for call in shipment]
+
+    def kernel():
+        for call, tb in zip(shipment, tabs):
+            RK.scatter_rows(call["layout"], call["buf"], call["names"],
+                            call["axes"], tb, call["n_per_shard"],
+                            call["offset"], call["narrowed"])
+
+    def plain_fn():
+        for call, tb in zip(shipment, plain_tabs):
+            RK.scatter_rows_plain(call["layout"], call["buf"],
+                                  call["names"], call["axes"], tb,
+                                  call["n_per_shard"], call["offset"],
+                                  call["narrowed"])
+
+    # the library yardstick: index_copy_ of the unpacked rows at
+    # precomputed local indices, one call a field a shard
+    lib_args = []
+    for call, tb in zip(shipment, plain_tabs):
+        unpacked = unpack(call["layout"], call["buf"], call["narrowed"])
+        idx = unpacked["__idx__"]
+        n, off = call["n_per_shard"], call["offset"]
+        local = idx - off
+        keep = torch.nonzero((idx >= 0) & (local >= 0)
+                             & (local < n)).flatten()
+        for nm, ax, dst in zip(call["names"], call["axes"], tb):
+            lib_args.append((dst.movedim(ax, 0), local[keep].clone(),
+                             unpacked[nm][keep].to(dst.dtype).contiguous()))
+
+    def library():
+        for dst, at, src in lib_args:
+            dst.index_copy_(0, at, src)
+
+    launches = RK.LAUNCHES
+    ms = queued_ms(kernel, reps=21, inner=10)
+    if RK.LAUNCHES - launches != (21 * 10 + 1) * len(shipment):
+        raise AssertionError("K8's timed calls did not launch it once for "
+                             "each owning shard")
+    for call, tb in zip(shipment, tabs):
+        if not all(torch.equal(a, b) for a, b in zip(tb, call["after"])):
+            raise AssertionError("K8's timed calls changed the tables")
+    bound_bytes = shipment_bound_bytes(RK, shipment)
+    bound_ms = bound_bytes / HBM_BYTES_PER_S * 1e3
+    call = shipment[0]
+    row = {"label": "churn wave", "shards": shards,
+           "n_per_shard": call["n_per_shard"], "M": int(call["idx"].size),
+           "rows": sum(int(((c["idx"] >= c["offset"])
+                            & (c["idx"] < c["offset"] + c["n_per_shard"])
+                            ).sum()) for c in shipment),
+           "fields": len(call["names"]), "field_names": call["names"],
+           "dtypes": [str(t.dtype) for t in call["after"]],
+           "max_abs_err": err, "matches_plain": True, "ms": ms,
+           "ms_per_launch": ms / len(shipment),
+           "launches_per_call": len(shipment),
+           "plain_ms": cuda_ms(plain_fn, reps=11, inner=5),
+           "library_ms": queued_ms(library, reps=21, inner=10),
+           "library_calls": len(lib_args), "bound_ms": bound_ms,
+           "bound_by": "bytes", "bound_share": bound_ms / ms,
+           "bound_bytes": bound_bytes}
+    emit("k8_churn", **row)
+    return row, err
+
+
+def mesh_algorithm(TorchScheduleAlgorithm, DeviceMesh, k, **kw):
+    return TorchScheduleAlgorithm(mesh=DeviceMesh([MESH_DEVICE] * k),
+                                  device=MESH_DEVICE, **kw)
+
+
+def phase_mesh_density(PK, T, ClusterState, TorchScheduleAlgorithm,
+                       DeviceMesh, S, single_names, single_wall, k):
+    """14b: phase 4's density shape through TorchScheduleAlgorithm(mesh=
+    ...) at k shards on the card: the names of the single-device driver
+    (phase 4), K1 launched at the shard width. -> (K1 launches, shapes,
+    the row)."""
+    n_nodes, n_pods = MESH_SIZE
+    nodes = S.density_nodes(T, n_nodes)
+    pods = S.pause_pods(T, n_pods)
+    state = ClusterState.build(nodes)
+    t0 = time.perf_counter()
+    mesh_algorithm(TorchScheduleAlgorithm, DeviceMesh, k).schedule_backlog(
+        pods, state)
+    torch.cuda.synchronize()
+    cold_wall = time.perf_counter() - t0
+    algo = mesh_algorithm(TorchScheduleAlgorithm, DeviceMesh, k)
+    reset(PK)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    names = algo.schedule_backlog(pods, state)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k1, k1_shapes = PK.LAUNCHES, shapes(PK.LAUNCHES_BY_SHAPE)
+    tally = dict(algo._mesh_sched.dispatches)
+    if names != single_names:
+        i = next(i for i, (a, b) in enumerate(zip(names, single_names))
+                 if a != b)
+        raise AssertionError(f"mesh density at {k} shards: pod {i} went to "
+                             f"{names[i]}, one device chose "
+                             f"{single_names[i]}")
+    n_bucket = 1 << (max(n_nodes, 64) - 1).bit_length()
+    widths = {N for (_J, N, _m) in PK.LAUNCHES_BY_SHAPE}
+    if k1 <= 0 or widths != {n_bucket // k}:
+        raise AssertionError(f"mesh density at {k} shards: K1 {k1} launches "
+                             f"at widths {widths}")
+    idle = idle_fields(*device_busy_ms(
+        lambda: mesh_algorithm(TorchScheduleAlgorithm, DeviceMesh,
+                               k).schedule_backlog(pods, state),
+        counted_kernels(PK)))
+    row = {"shards": k, "nodes": n_nodes, "pods": n_pods, "wall_s": wall,
+           "cold_wall_s": cold_wall, "pods_per_s": n_pods / wall,
+           "single_device_wall_s": single_wall, "dispatches": tally,
+           "resident_stats": dict(algo._mesh_sched.resident.stats),
+           "k1_launches": k1, "k1_launches_by_shape": k1_shapes, **idle,
+           "equal_to_single_device": True}
+    emit("mesh_density", **row)
+    return k1, k1_shapes, row
+
+
+def phase_mesh_waves(PK, RK, T, ClusterState, TorchScheduleAlgorithm,
+                     DeviceMesh, S, k=4):
+    """14c: the density backlog in MESH_WAVES waves at k shards on the
+    resident state (reuse="auto", the binds folded into the cluster
+    between waves), beside a reship run and the single-device driver in
+    lockstep: names equal, steady waves ship no table bytes and keep
+    every resident tensor's storage. Then the churn wave: labels and
+    allocatable change on MESH_CHURN_NODES nodes and one node goes (the
+    bucket stays 8,192): each shard owning a changed row launches K8,
+    names equal the reship run's and one device's. -> (K1 launches and
+    shapes over the waves, K8's launches and shapes on the churn wave,
+    its K8 calls as phase_k8_churn takes them)."""
+    n_nodes, n_pods = MESH_SIZE
+    per = n_pods // MESH_WAVES
+    nodes = S.density_nodes(T, n_nodes)
+    state = ClusterState.build(nodes)
+    algo = mesh_algorithm(TorchScheduleAlgorithm, DeviceMesh, k)
+    reship = mesh_algorithm(TorchScheduleAlgorithm, DeviceMesh, k)
+    reship._mesh_sched.reuse_default = "reship"
+    single = TorchScheduleAlgorithm(device=MESH_DEVICE)
+    res = algo._mesh_sched.resident
+    bound, waves = [], []
+    # the mesh driver's own launches: the reship run and one device run
+    # in lockstep, their launches left out
+    mine = {"k1": 0, "k1_shapes": {}, "k8": 0, "k8_shapes": {}}
+
+    def counted(fn):
+        before = (PK.LAUNCHES, dict(PK.LAUNCHES_BY_SHAPE), RK.LAUNCHES,
+                  dict(RK.LAUNCHES_BY_SHAPE))
+        out = fn()
+        mine["k1"] += PK.LAUNCHES - before[0]
+        mine["k8"] += RK.LAUNCHES - before[2]
+        for key, src, old in (("k1_shapes", PK.LAUNCHES_BY_SHAPE,
+                               before[1]),
+                              ("k8_shapes", RK.LAUNCHES_BY_SHAPE,
+                               before[3])):
+            for shape, n in src.items():
+                if n - old.get(shape, 0):
+                    mine[key][shape] = (mine[key].get(shape, 0) + n
+                                        - old.get(shape, 0))
+        return out
+
+    def wave(pods, st):
+        t0 = time.perf_counter()
+        got = counted(lambda: algo.schedule_backlog(pods, st))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        rs = reship.schedule_backlog(pods, st)
+        torch.cuda.synchronize()
+        reship_wall = time.perf_counter() - t0
+        if got != rs or got != single.schedule_backlog(pods, st):
+            raise AssertionError(f"mesh waves: wave {len(waves)} differs "
+                                 f"from the reship run or one device")
+        waves.append({"pods": len(pods), "wall_s": wall,
+                      "reship_wall_s": reship_wall,
+                      "table_bytes": res.stats["wave_table_bytes"],
+                      "h2d_bytes": res.stats["wave_h2d_bytes"],
+                      "dispatches": dict(algo._mesh_sched.dispatches)})
+        return got
+
+    reset(PK, RK)
+    ptrs = None
+    for w in range(MESH_WAVES):
+        pods = S.pause_pods(T, per, name0=w * per)
+        got = wave(pods, state)
+        bound += S.bind_hosts(state, pods, got)
+        if w == 0:
+            ptrs = {(f, s): t.data_ptr() for f, ts in
+                    list(res._static.items()) + list(res._carry.items())
+                    for s, t in enumerate(ts) if t.numel()}
+        elif waves[-1]["table_bytes"] != 0:
+            raise AssertionError(f"mesh waves: steady wave {w} shipped "
+                                 f"{waves[-1]['table_bytes']} table bytes")
+    now = {(f, s): t.data_ptr() for f, ts in
+           list(res._static.items()) + list(res._carry.items())
+           for s, t in enumerate(ts) if t.numel()}
+    if now != ptrs:
+        raise AssertionError("mesh waves: a resident tensor moved")
+    k1, k1_shapes = mine["k1"], shapes(mine["k1_shapes"])
+    if RK.LAUNCHES or k1 <= 0:
+        raise AssertionError(f"mesh waves: K8 {RK.LAUNCHES} launches on "
+                             f"the steady waves, K1 {k1}")
+    gone = n_nodes - 1
+    changed = S.density_nodes(T, gone)
+    step = gone // MESH_CHURN_NODES
+    churned = list(range(0, step * MESH_CHURN_NODES, step))
+    for i in churned:
+        changed[i].metadata.labels = {"disktype": "ssd"}
+        changed[i].status.allocatable = dict(changed[i].status.allocatable,
+                                             cpu="8", memory="64Gi")
+    gone_name = nodes[gone].metadata.name
+    state = ClusterState.build(
+        changed, assigned_pods=[q for q in bound
+                                if q.spec.node_name != gone_name])
+    reset(PK, RK)
+    mine.update(k1=0, k1_shapes={}, k8=0, k8_shapes={})
+    before = dict(res.stats)
+    pods = S.pause_pods(T, per, name0=n_pods)
+    # keep each K8 call of the churn wave (its shipment as the resident
+    # state built it, the shard's tables before and after) for 14c's
+    # check and timing; the copies are a few small tensors
+    shipment, scatter = [], RK.scatter_rows
+
+    def kept(layout, buf, names, axes, dests, n_per_shard, offset,
+             narrowed=frozenset()):
+        ours = {id(t) for ts in list(res._static.values())
+                + list(res._carry.values()) for t in ts}
+        call = None
+        if id(dests[0]) in ours:  # the mesh run's, not the reship run's
+            call = {"layout": layout, "buf": buf, "names": list(names),
+                    "axes": list(axes), "n_per_shard": n_per_shard,
+                    "offset": offset, "narrowed": narrowed,
+                    "before": [d.clone() for d in dests]}
+            shipment.append(call)
+        scatter(layout, buf, names, axes, dests, n_per_shard, offset,
+                narrowed)
+        if call is not None:
+            call["after"] = [d.clone() for d in dests]
+
+    RK.scatter_rows = kept
+    try:
+        wave(pods, state)
+    finally:
+        RK.scatter_rows = scatter
+    n_per_shard = (1 << (max(n_nodes, 64) - 1).bit_length()) // k
+    owners = len({i // n_per_shard for i in churned + [gone]})
+    k8, k8_shapes = mine["k8"], [
+        {"M": M, "n_per_shard": n, "fields": f, "launches": c}
+        for (M, n, f), c in sorted(mine["k8_shapes"].items())]
+    churn_k1, churn_k1_shapes = mine["k1"], shapes(mine["k1_shapes"])
+    if k8 != owners or res.stats["scatters"] != before["scatters"] + 1 \
+            or res.stats["rebuilds"] != before["rebuilds"] \
+            or len(shipment) != k8:
+        raise AssertionError(f"mesh churn: K8 {k8} launches for {owners} "
+                             f"owning shards ({len(shipment)} kept), "
+                             f"stats {res.stats}")
+    row = {"shards": k, "waves": waves, "churned_nodes": len(churned),
+           "removed_node": gone_name, "k8_launches": k8,
+           "k8_launches_by_shape": k8_shapes,
+           "churn_last_changed": res.stats.get("last_changed"),
+           "resident_stats": dict(res.stats), "k1_launches": k1,
+           "k1_launches_by_shape": k1_shapes,
+           "churn_k1_launches": churn_k1,
+           "churn_k1_launches_by_shape": churn_k1_shapes,
+           "steady_table_bytes": [w["table_bytes"] for w in waves[1:-1]],
+           "equal_to_reship": True, "equal_to_single_device": True,
+           "storage_kept": True}
+    emit("mesh_waves", **row)
+    return (k1 + churn_k1, k1_shapes, churn_k1, churn_k1_shapes, k8,
+            k8_shapes, shipment)
+
+
+def phase_mesh_scan(T, ClusterState, S, DeviceMesh, k=4):
+    """14d: MeshBatchScheduler at k shards on the mixed scenario (phase
+    5's cluster and backlog) against the single-device scan on the card,
+    the counterpart of the JAX package's dryrun_multichip."""
+    from kubernetes_tpu_torch.models.batch import BatchScheduler
+    from kubernetes_tpu_torch.parallel.mesh import MeshBatchScheduler
+    from kubernetes_tpu_torch.snapshot.encode import SnapshotEncoder
+
+    nodes, services = S.mixed_cluster(T, MIXED_SIZE[0])
+    pods = S.mixed_backlog(T, scale=MIXED_SIZE[1])
+    state = ClusterState.build(nodes, services=services)
+    enc = SnapshotEncoder(state, pods)
+    snap, batch = enc.encode_nodes(), enc.encode_pods()
+    t0 = time.perf_counter()
+    got = MeshBatchScheduler(DeviceMesh([MESH_DEVICE] * k)).schedule_names(
+        snap, batch)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want = BatchScheduler(device=MESH_DEVICE).schedule_names(snap, batch)
+    torch.cuda.synchronize()
+    single_wall = time.perf_counter() - t0
+    if got != want:
+        i = next(i for i, (a, b) in enumerate(zip(got, want)) if a != b)
+        raise AssertionError(f"mesh scan: pod {i} went to {got[i]}, the "
+                             f"single-device scan chose {want[i]}")
+    emit("mesh_scan", shards=k, nodes=len(nodes), pods=len(pods),
+         wall_s=wall, ms_per_pod=wall / len(pods) * 1e3,
+         single_device_wall_s=single_wall,
+         unscheduled=got.count(None), equal_to_single_device=True)
+
+
+def phase_mesh(PK, RK, T, ClusterState, TorchScheduleAlgorithm, S,
+               density_names, density_wall):
+    """Phase 14, the mesh: -> (K8's row, K1 launches and shapes by path,
+    K8 launches and shapes)."""
+    from kubernetes_tpu_torch.parallel.shard import DeviceMesh
+
+    t0 = time.perf_counter()
+    case_err = phase_k8(RK, S)
+    k1_paths, k1_shapes = {}, {}
+    for k in MESH_SHARDS:
+        n, sh, _row = phase_mesh_density(
+            PK, T, ClusterState, TorchScheduleAlgorithm, DeviceMesh, S,
+            density_names, density_wall, k)
+        k1_paths[f"mesh_density_{k}"] = n
+        k1_shapes[f"mesh_density_{k}"] = sh
+    k = MESH_SHARDS[0]
+    n, sh, n_churn, sh_churn, k8, k8_shapes, shipment = phase_mesh_waves(
+        PK, RK, T, ClusterState, TorchScheduleAlgorithm, DeviceMesh, S, k)
+    k8_row, churn_err = phase_k8_churn(RK, k, shipment)
+    k8_err = max(case_err, churn_err)
+    k1_paths["mesh_waves"] = n - n_churn
+    k1_shapes["mesh_waves"] = sh
+    k1_paths["mesh_churn"] = n_churn
+    k1_shapes["mesh_churn"] = sh_churn
+    phase_mesh_scan(T, ClusterState, S, DeviceMesh)
+    emit("mesh", seconds=time.perf_counter() - t0)
+    return k8_row, k8_err, k1_paths, k1_shapes, k8, k8_shapes
+
+
 def k6_shapes_of(VK) -> list:
     """K6's {(N, C): launches} -> [{"N", "C", "launches"}, ...] in
     order."""
@@ -2963,6 +3449,7 @@ def run(args, jobs) -> int:
     from kubernetes_tpu_torch.ops import preempt_kernel as VK
     from kubernetes_tpu_torch.ops import probe_kernel as PK
     from kubernetes_tpu_torch.ops import zreplay_kernel as ZK
+    from kubernetes_tpu_torch.parallel import resident_kernel as RK
     from kubernetes_tpu_torch.runtime import scheme
     from kubernetes_tpu_torch.scheduler.algorithm import (
         TorchScheduleAlgorithm,
@@ -2983,7 +3470,7 @@ def run(args, jobs) -> int:
 
     # one nvcc per kernel source, all started together
     builds = [PK.build, ZK.build, VK.build, AK.build,
-              lambda: build_cuda("chain_floor")]
+              lambda: build_cuda("chain_floor"), RK.build]
     baselines = [(flag, src, name) for flag, src, name in (
         ("k3", args.baseline_k3, "zreplay_kernel_baseline"),
         ("k6", args.baseline_k6, "preempt_kernel_baseline"),
@@ -2993,15 +3480,15 @@ def run(args, jobs) -> int:
             os.path.abspath(src), name))
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(builds)) as pool:
-        k1_lib, k3_lib, k6_lib, k7_lib, chain_lib, *old_libs = pool.map(
-            lambda f: f(), builds)
+        k1_lib, k3_lib, k6_lib, k7_lib, chain_lib, k8_lib, *old_libs = \
+            pool.map(lambda f: f(), builds)
     old_paths = {flag: path for (flag, _s, _n), path in zip(baselines,
                                                              old_libs)}
     k3_ptxas = k3_reports(k3_lib)
     k6_ptxas = k6_reports(k6_lib)
     k7_ptxas = k7_reports(k7_lib)
     emit("build", kernels=["resource_probe", "zreplay", "victim_score",
-                           "assign", "chain_floor"],
+                           "assign", "chain_floor", "resident_scatter"],
          seconds=time.perf_counter() - t0,
          ptxas={"resource_probe": ptxas_report(k1_lib,
                                                "resource_probe_kernel"),
@@ -3015,7 +3502,9 @@ def run(args, jobs) -> int:
                         chain_lib, f"chain_floor_kernelILi{n}E")
                        for n in (K3_THREADS, 1024, BEAM_CHAIN_THREADS)},
                     "grid_sync": ptxas_report(chain_lib,
-                                              "grid_sync_floor_kernel")}},
+                                              "grid_sync_floor_kernel")},
+                "resident_scatter": ptxas_report(
+                    k8_lib, "resident_scatter_kernel")},
          c_replay=replay._load_lib() is not None)
 
     times, max_err = phase_kernel(PK, S)
@@ -3072,6 +3561,9 @@ def run(args, jobs) -> int:
     profile_bf16, profile_bf16_shapes = phase_profiles(
         PK, S, TorchScheduleAlgorithm, jobs)
     opt_paths = phase_optimizing(PK, AK, jobs)
+    k8, k8_err, mesh_k1, mesh_k1_shapes, k8_launches, k8_shapes = \
+        phase_mesh(PK, RK, T, ClusterState, TorchScheduleAlgorithm, S,
+                   density_names, density_wall)
 
     # the density path probes J=128 over the 5,000 nodes padded to 8,192;
     # the zoned density path runs one 50,000-pick run in a 65,536 bucket
@@ -3096,7 +3588,8 @@ def run(args, jobs) -> int:
                              "wire": wire_k1,
                              "wire_separate": separate_k1,
                              **{f"optimizing_{k}": v[0]
-                                for k, v in opt_paths.items()}},
+                                for k, v in opt_paths.items()},
+                             **mesh_k1},
         "launches_by_shape": {"density": density_shapes,
                               "zoned_density": z_k1_shapes,
                               "many_templates": tpl_k1_shapes,
@@ -3109,7 +3602,8 @@ def run(args, jobs) -> int:
                               "wire": wire_k1_shapes,
                               "wire_separate": separate_k1_shapes,
                               **{f"optimizing_{k}": v[1]
-                                 for k, v in opt_paths.items()}},
+                                 for k, v in opt_paths.items()},
+                              **mesh_k1_shapes},
         "max_abs_err": max_err,
         "matches_plain": True,
         "ms": k1["ms"],
@@ -3193,7 +3687,28 @@ def run(args, jobs) -> int:
         "ptxas": k6_ptxas,
         "library_ms": None,
     }, *[k7_entry(solver, k7_times, k7_err, k7_ptxas, opt_paths)
-         for solver in ("auction", "beam")]]}), flush=True)
+         for solver in ("auction", "beam")], {
+        "name": "resident_scatter",
+        "route": "cuda",
+        "source": "kubernetes_tpu_torch/csrc/resident_scatter.cu",
+        "replaces": "kubernetes_tpu/parallel/resident.py:167",
+        "launches": k8_launches,
+        "launches_by_path": {"mesh_churn": k8_launches},
+        "launches_by_shape": {"mesh_churn": k8_shapes},
+        "max_abs_err": k8_err,
+        "matches_plain": True,
+        "shape": {k: k8[k] for k in ("shards", "n_per_shard", "M", "rows",
+                                     "fields")},
+        "ms": k8["ms"],
+        "ms_per_launch": k8["ms_per_launch"],
+        "plain_ms": k8["plain_ms"],
+        "bound_ms": k8["bound_ms"],
+        "bound_by": k8["bound_by"],
+        "bound_share": k8["bound_share"],
+        "library_ms": k8["library_ms"],
+        "library": "index_copy_",
+        "library_calls": k8["library_calls"],
+    }]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -902,6 +902,157 @@ VICTIM_CASES = (
 VICTIM_TAILS = tuple((N, C) for C in (8, 16) for N in (1, 3, 65))
 
 
+# -- the resident row scatter K8 ----------------------------------------------
+
+#: K8's fields: (name, host dtype, shape(N), node axis, narrowed), every
+#: dtype pair the snapshot's tables place: int64 kept, int32 and uint8
+#: widened (sign- and zero-extended), a uint32 bitset widened with its top
+#: bit set, bool, float64 with NaN, float32, narrowed int8/int16 tables
+#: kept narrow; the node axis first (1-D and 2-D rows) and second
+#: (__res__'s (6, N), a (2, N, 3) block)
+SCATTER_FIELDS = (
+    ("alloc_i64", "int64", lambda n: (n,), 0, False),
+    ("count_i32", "int32", lambda n: (n,), 0, False),
+    ("bits_u32", "uint32", lambda n: (n, 3), 0, False),
+    ("flag_bool", "bool", lambda n: (n,), 0, False),
+    ("numval_f64", "float64", lambda n: (n, 2), 0, False),
+    ("ratio_f32", "float32", lambda n: (n,), 0, False),
+    ("zone_i8", "int8", lambda n: (n,), 0, True),
+    ("taint_i16", "int16", lambda n: (n, 4), 0, True),
+    ("vocab_u8", "uint8", lambda n: (n,), 0, False),
+    ("res_axis1", "int64", lambda n: (6, n), 1, False),
+    ("grid_axis1", "int32", lambda n: (2, n, 3), 1, False),
+)
+
+#: the fields a node's label and allocatable update changes, at the
+#: widths the snapshot encodes them (label bitsets of a few words)
+SCATTER_UPDATE_FIELDS = (
+    ("alloc_mcpu", "int64", lambda n: (n,), 0, False),
+    ("alloc_mem", "int64", lambda n: (n,), 0, False),
+    ("alloc_pods", "int64", lambda n: (n,), 0, False),
+    ("label_kv", "uint32", lambda n: (n, 4), 0, False),
+    ("label_key", "uint32", lambda n: (n, 2), 0, False),
+    ("numval", "float64", lambda n: (n, 2), 0, False),
+)
+
+#: (label, shards, n_per_shard, M, changed rows, fields) of chip_smoke's
+#: K8 equality cases: every dtype pair at M = 64 and 1,024, 4 shards x
+#: 2,048 and 1 x 8,192 nodes, and the fields of a node update at host
+#: widths (K8 is timed on the churn wave's own shipment instead)
+SCATTER_CASES = (
+    ("all fields 4x2048 M=64", 4, 2048, 64, 50, "all"),
+    ("all fields 4x2048 M=1024", 4, 2048, 1024, 1000, "all"),
+    ("all fields 1x8192 M=64", 1, 8192, 64, 64, "all"),
+    ("all fields 1x8192 M=1024", 1, 8192, 1024, 700, "all"),
+    ("node update 4x2048 M=64", 4, 2048, 64, 50, "update"),
+)
+#: the same at CPU-test sizes
+SCATTER_CPU_CASES = (
+    ("all fields 2x64 M=64", 2, 64, 64, 20, "all"),
+    ("all fields 8x16 M=64", 8, 16, 64, 40, "all"),
+    ("all fields 1x128 M=128", 1, 128, 128, 100, "all"),
+    ("all fields 4x32 M=64 every row", 4, 32, 64, 64, "all"),
+    ("node update 4x32 M=64", 4, 32, 64, 9, "update"),
+)
+
+
+def _placed_np(a, narrow: bool):
+    """The host array at the dtype the port places it at (ints as
+    int64 unless narrowed; bool and float as they are)."""
+    import numpy as np
+
+    if a.dtype.kind in "iu" and not narrow:
+        return a.astype(np.int64)
+    return a.copy()
+
+
+def scatter_case(shards: int, n_per_shard: int, M: int, n_rows: int,
+                 seed: int, fields="all") -> dict:
+    """One K8 input made from a numpy seed: -> {"fields": [(name, axis,
+    narrowed)], "old": name -> the placed resident table before (global
+    node axis), "new": name -> the new HOST table, "expected": name ->
+    the placed table after, "rows": the changed global rows, "layout",
+    "buf": the packed shipment (__idx__ i64[M] padded with -1, each
+    field's changed rows with the node axis moved first, at host
+    widths), "shards", "n_per_shard"}."""
+    import numpy as np
+
+    from kubernetes_tpu_torch.models.pack import pack_arrays
+
+    spec = SCATTER_FIELDS if fields == "all" else SCATTER_UPDATE_FIELDS
+    rng = np.random.default_rng(seed)
+    N = shards * n_per_shard
+    rows = np.sort(rng.choice(N, size=min(n_rows, N, M), replace=False))
+
+    def draw(dt, shape):
+        dt = np.dtype(dt)
+        if dt == np.bool_:
+            return rng.random(shape) < 0.5
+        if dt.kind == "f":
+            a = rng.normal(size=shape).astype(dt)
+            a[rng.random(shape) < 0.1] = np.nan
+            return a
+        info = np.iinfo(dt)
+        lo, hi = max(info.min, -(2**40)), min(info.max, 2**40)
+        a = rng.integers(lo, hi, size=shape, endpoint=True).astype(dt)
+        if dt == np.uint32:
+            a |= np.uint32(1 << 31) * (rng.random(shape) < 0.5)
+        return a
+
+    old, new, expected, meta = {}, {}, {}, []
+    packed = {"__idx__": np.full(M, -1, np.int64)}
+    packed["__idx__"][: len(rows)] = rows
+    for name, dt, shape_of, ax, narrow in spec:
+        shape = shape_of(N)
+        before = draw(dt, shape)
+        after = before.copy()
+        moved = np.moveaxis(after, ax, 0)
+        moved[rows] = draw(dt, (len(rows),) + moved.shape[1:])
+        old[name] = _placed_np(before, narrow)
+        new[name] = after
+        expected[name] = _placed_np(after, narrow)
+        r = np.moveaxis(after, ax, 0)[rows]
+        pad = np.zeros((M - len(rows),) + r.shape[1:], r.dtype)
+        packed[name] = np.concatenate([r, pad])
+        meta.append((name, ax, narrow))
+    layout, buf = pack_arrays(packed)
+    return {"fields": meta, "old": old, "new": new, "expected": expected,
+            "rows": rows, "layout": layout, "buf": buf, "shards": shards,
+            "n_per_shard": n_per_shard, "M": M}
+
+
+def bind_hosts(state, pods, hosts) -> list:
+    """Assign each pod to its chosen node in `state` (the binds a daemon
+    makes between waves; None stays pending). -> the bound copies."""
+    import copy
+
+    bound = []
+    for p, h in zip(pods, hosts):
+        if h is None:
+            continue
+        q = copy.copy(p)
+        q.spec = copy.copy(p.spec)
+        q.spec.node_name = h
+        state.assign(q)
+        bound.append(q)
+    return bound
+
+
+def scatter_shard_tables(case: dict, s: int) -> dict:
+    """Shard s's slice of a scatter_case's placed tables before the
+    scatter (fresh contiguous numpy copies, one per field)."""
+    import numpy as np
+
+    n = case["n_per_shard"]
+    out = {}
+    for name, ax, _narrow in case["fields"]:
+        a = case["old"][name]
+        window = [slice(None)] * a.ndim
+        window[ax] = slice(s * n, (s + 1) * n)
+        out[name] = np.ascontiguousarray(a[tuple(window)])
+    return out
+
+
 # -- the daemon core: the scheduler cache and the scheduling loop -------------
 
 def scheduler_cache(C, nodes, bound=()):

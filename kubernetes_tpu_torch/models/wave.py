@@ -80,8 +80,8 @@ Decisions are identical with every switch on or off (tests/
 test_torch_quant.py, test_torch_pipeline.py). The optimizing profile
 (scheduler/optimizer/profile.py) drives this driver's setup, probes and
 folds, with the standalone grouped fold _apply_group_packed. The mesh
-driver is left to a later slice. The run/eligibility/group helpers below
-are verbatim copies of the JAX driver's host code.
+driver (parallel/mesh.MeshWaveScheduler) shares the run/eligibility/group
+helpers below, verbatim copies of the JAX driver's host code.
 """
 
 from __future__ import annotations
@@ -555,10 +555,9 @@ def split_runs(rep_idx: np.ndarray,
     return runs
 
 
-# A verbatim copy (tests/test_torch_isolation.py FUNCTION_COPIES): its
-# docstring's "mesh wave drivers" is the JAX package's. The port has no
-# mesh driver: parallel/mesh.py is not ported (ROADMAP.md queue 1 item
-# 2), so only WaveScheduler calls it here.
+# A verbatim copy (tests/test_torch_isolation.py FUNCTION_COPIES): the
+# port's mesh driver (parallel/mesh.MeshWaveScheduler) calls it too, with
+# device_zoned=False.
 def classify_runs(config: SchedulerConfig, snap: ClusterSnapshot,
                   batch: PodBatch, runs, num_values: int, min_run: int,
                   *, device_zoned: bool = False, zoned: bool = False,

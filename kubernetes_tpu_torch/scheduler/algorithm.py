@@ -33,10 +33,17 @@ scheduler/optimizer/profile.OptimizingWaveDriver, built at its first
 wave: one grouped header probe, one joint-assignment solve (K7 on the
 card), host re-validation, one grouped fold and the serial scan for the
 rest, as in the JAX package. The daemon (scheduler/server.py,
-factory.py) reaches it through the environment. The JAX package keeps
-the optimizing profile off its mesh driver with a warning; the port has
-no mesh driver yet (ROADMAP.md queue 1 item 2), so that warning has no
-counterpart here.
+factory.py) reaches it through the environment.
+
+The mesh (mesh=, a parallel/shard.DeviceMesh): the node axis sharded
+over the mesh's devices, through parallel/mesh.MeshWaveScheduler against
+its resident sharded state (parallel/resident), with the sharded scan as
+the in-carry fallback, as TPUScheduleAlgorithm(mesh=...) does. Each wave
+is deduped, encoded (the incremental view in daemon mode, else the full
+encode), padded to next_pow2(n, 64) and then to a mesh multiple; the
+optimizing profile on a mesh warns and takes greedy, and `gangs` are
+ignored there (the caller's all-or-nothing check guards the binds), as
+in the JAX package.
 
 It runs on CUDA unless the caller passes device="cpu"; on a host without
 CUDA the default raises instead of carrying on on the CPU.
@@ -87,7 +94,7 @@ class TorchScheduleAlgorithm:
     def __init__(self, device="cuda", min_run: int = 16, config=None,
                  replay=None, cache=None, service_lister=None,
                  controller_lister=None, replica_set_lister=None,
-                 profile=None):
+                 profile=None, mesh=None):
         """config: a models/batch SchedulerConfig overriding the default
         provider. replay overrides the wave's host replay engine (a
         testing seam, e.g. models/replay.replay_spec); it also sends
@@ -98,9 +105,13 @@ class TorchScheduleAlgorithm:
         reads. profile picks the wave driver: "greedy" (default;
         bit-identical to the serial oracle) or "optimizing" (the
         joint-packing profile, scheduler/optimizer); None reads
-        KUBERNETES_TPU_PROFILE."""
+        KUBERNETES_TPU_PROFILE. mesh: a parallel/shard.DeviceMesh to
+        shard the node axis over (the mesh driver; its devices replace
+        `device`)."""
         self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
+        devices = mesh.devices if mesh is not None else (self.device,)
+        if any(d.type == "cuda" for d in devices) \
+                and not torch.cuda.is_available():
             raise RuntimeError(
                 "TorchScheduleAlgorithm: CUDA is not available; pass "
                 "device='cpu' to run on the CPU")
@@ -108,12 +119,30 @@ class TorchScheduleAlgorithm:
         # the optimizing profile's driver, wrapping self._wave, built at
         # its first wave
         self._opt = None
-        # the wave driver, exposed as TPUScheduleAlgorithm exposes its own
-        self._wave = WaveScheduler(config=config, min_run=min_run,
-                                   device=self.device, replay=replay)
+        self._mesh_sched = None
+        self._wave = None
         self._shadow_gate = None
         self._shadow_wave = None
-        if quant.score_mode(self._wave._quant_mode) == "bf16":
+        if mesh is not None and self._profile == PROFILE_OPTIMIZING:
+            # the optimizing profile is single-device; the mesh keeps the
+            # greedy driver rather than silently changing semantics
+            log.warning("KUBERNETES_TPU_PROFILE=optimizing is not "
+                        "supported on the mesh driver; using greedy")
+            self._profile = "greedy"
+        if mesh is not None:
+            from kubernetes_tpu_torch.parallel.mesh import MeshWaveScheduler
+
+            self._mesh_sched = MeshWaveScheduler(mesh, config=config,
+                                                 min_run=min_run)
+            algo_config = self._mesh_sched.config
+        else:
+            # the wave driver, exposed as TPUScheduleAlgorithm exposes
+            # its own
+            self._wave = WaveScheduler(config=config, min_run=min_run,
+                                       device=self.device, replay=replay)
+            algo_config = self._wave.config
+        if self._wave is not None \
+                and quant.score_mode(self._wave._quant_mode) == "bf16":
             # the bf16 j-table profile is a DECLARED approximation:
             # sampled waves re-run on a full-width shadow driver and any
             # decision divergence increments the metric and permanently
@@ -130,7 +159,7 @@ class TorchScheduleAlgorithm:
         if cache is not None:
             # daemon mode: maintain the snapshot from cache deltas
             # instead of re-encoding the cluster every wave
-            self._inc = IncrementalEncoder(config=self._wave.config)
+            self._inc = IncrementalEncoder(config=algo_config)
             cache.add_listener(self._inc.on_cache_event)
         # selectHost's round-robin counter persists across waves, like
         # the reference's genericScheduler.lastNodeIndex across pods
@@ -169,7 +198,14 @@ class TorchScheduleAlgorithm:
         each; the port compiles no program per shape, so it has no such
         walk. Under the optimizing profile the joint-assignment kernel K7
         is built too, and the synthetic waves take that profile. A failed
-        build or launch raises (see _warm_one)."""
+        build or launch raises (see _warm_one). On a mesh, phase "run"
+        and "scan" warm the mesh driver instead (_warmup_mesh)."""
+        if self._mesh_sched is not None:
+            if phase in ("all", "run"):
+                self._warmup_mesh(num_nodes, scan=False)
+            if phase in ("all", "scan"):
+                self._warmup_mesh(num_nodes, scan=True)
+            return
         if self.device.type == "cuda":
             from kubernetes_tpu_torch.ops import probe_kernel, zreplay_kernel
 
@@ -212,6 +248,66 @@ class TorchScheduleAlgorithm:
             self._warm_one([pod("w-scan", "200m"),
                             pod("w-scan2", "300m")], state, nodes)
 
+    def _warmup_mesh(self, num_nodes: int, scan: bool = False) -> None:
+        """Build the mesh's kernels (K1 and the row scatter K8) and run
+        synthetic backlogs through the mesh driver before real pods
+        arrive. scan=False: a min_run template run (the sharded probe +
+        fold), then two adjacent templates (the grouped header probe +
+        grouped fold); scan=True: two pods that differ by their request
+        (the sharded scan).
+
+        Deviation from kubernetes_tpu/scheduler/tpu_algorithm.py
+        TPUScheduleAlgorithm._warmup_mesh, which logs and swallows any
+        exception: here an exception propagates, so a kernel that fails
+        to build or to launch stops the warmup (see _warm_one)."""
+        if any(d.type == "cuda" for d in self._mesh_sched.mesh.devices):
+            from kubernetes_tpu_torch.ops import probe_kernel
+            from kubernetes_tpu_torch.parallel import resident_kernel
+
+            probe_kernel._lib()
+            resident_kernel._lib()
+        nodes = [
+            Node(
+                metadata=ObjectMeta(name=f"warm-{i:05d}"),
+                status=NodeStatus(
+                    allocatable={"cpu": "4", "memory": "32Gi",
+                                 "pods": "110"},
+                    conditions=[NodeCondition("Ready", "True")],
+                ),
+            )
+            for i in range(max(num_nodes, 1))
+        ]
+
+        def pod(name, cpu):
+            return Pod(
+                metadata=ObjectMeta(name=name, labels={"app": "warm"}),
+                spec=PodSpec(containers=[
+                    Container(image="warm", requests={"cpu": cpu})
+                ]),
+            )
+
+        n = max(self._mesh_sched.min_run, 2)
+        if scan:
+            waves = [[pod(f"ws{i}", f"{100 + i}m") for i in range(2)]]
+        else:
+            waves = [[pod(f"w{i}", "100m") for i in range(n)],
+                     [pod(f"wg{t}-{i}", f"{100 + 50 * t}m")
+                      for t in range(2) for i in range(n)]]
+        state = ClusterState.build(nodes)
+        with self._sched_lock:
+            saved_last, saved_inc = self._last_node_index, self._inc
+            try:
+                if saved_inc is not None:
+                    inc = IncrementalEncoder(config=self._mesh_sched.config)
+                    for nd in nodes:
+                        inc.on_cache_event("node_set", nd)
+                    self._inc = inc
+                for wave in waves:
+                    self._schedule_backlog_mesh(wave, state)
+            finally:
+                self._inc = saved_inc
+                self._last_node_index = saved_last
+
     def _warm_one(self, backlog, state, nodes) -> None:
         """One synthetic wave, the real round-robin counter and encoder
         restored after it. In daemon mode it runs through a throwaway
@@ -246,11 +342,51 @@ class TorchScheduleAlgorithm:
         "score_by_name": {node name: int} | None}] (the layout of
         scheduler/gang.GangDirector.plan_wave): each gang's score row is
         resolved into the snapshot's node order (padded rows score 0 and
-        never fit) and handed to the wave driver."""
+        never fit) and handed to the wave driver. The mesh path ignores
+        them and relies on the caller's all-or-nothing check before
+        anything binds, as the JAX package's does."""
         if not pods:
             return []
+        if self._mesh_sched is not None:
+            # the same lock: serializes real waves against a warmup's
+            # counter save/restore
+            with self._sched_lock:
+                return self._schedule_backlog_mesh(pods, state)
         with self._sched_lock:
             return self._schedule_backlog_locked(pods, state, gangs)
+
+    def _schedule_backlog_mesh(self, pods: Sequence[Pod],
+                               state: ClusterState) -> List[Optional[str]]:
+        """The mesh path: the sharded wave driver against the resident
+        sharded state. With a cache the incremental encoder supplies the
+        wave's view; either way the resident state content-compares the
+        snapshot against its host mirrors and ships only deltas."""
+        with trace_profile.phase_timer("encode"):
+            reps, rep_idx = self._dedup(pods)
+            snap = batch = None
+            if self._inc is not None:
+                snap, batch, _keep = self._inc.wave_view(
+                    reps, services=_listed(self._service_lister),
+                    controllers=_listed(self._controller_lister),
+                    replica_sets=_listed(self._replica_set_lister))
+            if snap is None:
+                enc = SnapshotEncoder(state, reps,
+                                      config=self._mesh_sched.config)
+                snap = enc.encode_nodes()
+                batch = enc.encode_pods()
+            n_real = snap.num_nodes
+            if n_real == 0:
+                return [None] * len(pods)
+            # bucket the node axis (pow2, floor 64), then to a mesh
+            # multiple, so node ids map back to THIS snapshot's names
+            snap = pad_snapshot(snap, next_pow2(n_real, 64))
+            snap = pad_snapshot(snap, self._mesh_sched.mesh.size)
+        chosen, _final, last = self._mesh_sched.schedule_backlog(
+            snap, batch, rep_idx, last_node_index=self._last_node_index)
+        self._last_node_index = last
+        names = snap.node_names
+        return [names[i] if 0 <= i < n_real else None
+                for i in (int(c) for c in chosen)]
 
     def _schedule_backlog_locked(self, pods: Sequence[Pod],
                                  state: ClusterState,

@@ -7,10 +7,13 @@ the same predicate and priority keys under DefaultProvider and
 TPUProvider. The device provider's factory builds TorchScheduleAlgorithm
 (see _tpu_algorithm_factory), and the same provider is also registered
 as "CUDAProvider", so a policy file or options written for the JAX
-daemon load unchanged and new ones can name the card. No mesh: the
-multi-device driver is a later slice.
+daemon load unchanged and new ones can name the card. On a host with
+several cards the factory shards the node axis over them
+(KUBERNETES_TPU_MESH, _build_mesh), as the JAX factory does over its
+chips.
 
-Env knob parity: KUBE_MAX_PD_VOLS (defaults.go:41-53).
+Env knob parity: KUBE_MAX_PD_VOLS (defaults.go:41-53),
+KUBERNETES_TPU_MESH.
 """
 
 from __future__ import annotations
@@ -158,24 +161,64 @@ def _register_all() -> None:
 CUDA_PROVIDER_NAME = "CUDAProvider"
 
 
+def _visible_devices() -> list:
+    """The CUDA devices this process sees (none without CUDA)."""
+    import torch
+
+    if not torch.cuda.is_available():
+        return []
+    return [torch.device(f"cuda:{i}")
+            for i in range(torch.cuda.device_count())]
+
+
+def _build_mesh():
+    """The daemon's device mesh, gated by KUBERNETES_TPU_MESH:
+      auto (default) — shard the node axis when >1 device is visible;
+      off            — single-device even on a multi-card host;
+      force          — error out rather than silently run single-device.
+    Returns None for the single-device path.
+
+    Deviation from kubernetes_tpu/scheduler/algorithmprovider.py
+    _build_mesh: the devices are the visible CUDA devices
+    (_visible_devices) and the mesh a parallel/shard.DeviceMesh over
+    them, where the JAX function takes jax.devices() into a
+    jax.sharding.Mesh."""
+    mode = os.environ.get("KUBERNETES_TPU_MESH", "auto").lower()
+    if mode == "off":
+        return None
+    devices = _visible_devices()
+    if len(devices) < 2:
+        if mode == "force":
+            raise RuntimeError(
+                f"KUBERNETES_TPU_MESH=force but only {len(devices)} "
+                "device(s) visible"
+            )
+        return None
+    from kubernetes_tpu_torch.parallel.shard import DeviceMesh
+
+    return DeviceMesh(devices)
+
+
 def _tpu_algorithm_factory(factory_args, device="cuda"):
     """Build the port's batched ScheduleAlgorithm on `device` (the card
     unless the caller asks for the CPU). The daemon wires the scheduler
     cache so waves run off the incrementally-maintained snapshot; with
     default factory arguments (no cache) every wave encodes its
-    snapshot from scratch.
+    snapshot from scratch. On a host with several cards the node axis
+    shards across them (_build_mesh; decisions bit-identical to one
+    device), without the cache, as the JAX factory does.
 
     Deviation from kubernetes_tpu/scheduler/algorithmprovider.py
     _tpu_algorithm_factory: it takes the torch `device` of the
-    algorithm, and it builds no mesh, since the port has no
-    multi-device driver yet (parallel/mesh.py, ROADMAP.md queue 1 item
-    2); it always returns TorchScheduleAlgorithm with the factory
-    arguments' scheduler cache and listers, as the JAX factory does off
-    the mesh."""
+    algorithm, and hands it to TorchScheduleAlgorithm on and off the
+    mesh."""
     from kubernetes_tpu_torch.scheduler.algorithm import (
         TorchScheduleAlgorithm,
     )
 
+    mesh = _build_mesh()
+    if mesh is not None:
+        return TorchScheduleAlgorithm(mesh=mesh, device=device)
     return TorchScheduleAlgorithm(
         device=device,
         cache=factory_args.scheduler_cache,

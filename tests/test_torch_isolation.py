@@ -74,6 +74,18 @@ FUNCTION_COPIES = {
                        "classify_runs", "ENV_PIPELINE",
                        "_pipeline_enabled", "group_buffer"),
     "models/pack.py": ("pack_arrays",),
+    "parallel/resident.py": (
+        "AXIS", "CARRY_FIELDS", "CARRY_BLOCKS", "_PURE_CARRY",
+        "_STATIC_SHARDED_1D", "_STATIC_SHARDED_2D", "host_static",
+        "host_carry", "_eq", "ResidentClusterState.SCATTER_FRAC",
+        "ResidentClusterState.begin_wave", "ResidentClusterState.count_h2d",
+        "ResidentClusterState._placed_dtype", "ResidentClusterState._placed",
+        "ResidentClusterState._signature", "ResidentClusterState._specs",
+        "ResidentClusterState._block_of", "ResidentClusterState.note_commit",
+        "ResidentClusterState.note_scan", "ResidentClusterState.invalidate",
+        "ResidentClusterState.usage", "ResidentClusterState.invalidate_all"),
+    "parallel/mesh.py": ("_opaque_blocks", "_sparse_counts",
+                         "_sparse_group_counts"),
     "parallel/quant.py": ("ENV", "SHADOW_ENV", "NARROWABLE",
                           "_NARROW_STEPS", "mode", "narrow_enabled",
                           "score_mode", "narrow_dtype", "narrow",
@@ -121,12 +133,19 @@ FUNCTION_COPIES = {
 #: raises on a missing card or a failed kernel build; tests/
 #: test_torch_wire.py the daemon against the JAX package's). A name "Class.
 #: method" is a method of a top-level class; "<module>" is the module
-#: itself, its docstring saying what it leaves out (parallel/__init__.py
-#: exports quant alone until the mesh slice; controller/__init__.py exports
-#: framework's names alone until the host-only subsystems).
+#: itself, its docstring saying what it leaves out (controller/__init__.py
+#: exports framework's names alone until the host-only subsystems;
+#: parallel/mesh.py and parallel/resident.py donate nothing and compile
+#: no programs; tests/test_torch_mesh.py and test_torch_resident.py hold
+#: them to the JAX package's).
 DEVIATIONS = {
-    ("parallel/__init__.py", "<module>"): "queue 1 item 2",
     ("controller/__init__.py", "<module>"): "queue 1 item 4",
+    ("parallel/mesh.py", "<module>"): "runtime_donation",
+    ("parallel/resident.py", "<module>"): "KUBERNETES_TPU_MESH_DONATE",
+    ("parallel/resident.py", "ResidentClusterState"): "in place",
+    ("scheduler/algorithm.py", "TorchScheduleAlgorithm._warmup_mesh"):
+        "an exception propagates",
+    ("scheduler/algorithmprovider.py", "_build_mesh"): "_visible_devices",
     ("scheduler/algorithmprovider.py", "_tpu_algorithm_factory"):
         "TorchScheduleAlgorithm",
     ("scheduler/gang.py", "GangDirector"): "VictimScorer(device=device)",
@@ -150,6 +169,8 @@ DEVIATIONS = {
 COUNTERPARTS = {
     ("scheduler/algorithm.py", "TorchScheduleAlgorithm._warm_one"):
         ("scheduler/tpu_algorithm.py", "TPUScheduleAlgorithm._warm_one"),
+    ("scheduler/algorithm.py", "TorchScheduleAlgorithm._warmup_mesh"):
+        ("scheduler/tpu_algorithm.py", "TPUScheduleAlgorithm._warmup_mesh"),
 }
 
 
@@ -206,6 +227,10 @@ def test_import_leaves_jax_unloaded():
         "import kubernetes_tpu_torch.scheduler.optimizer.ops.assign_kernel\n"
         "import kubernetes_tpu_torch.scheduler.optimizer.controller.defrag\n"
         "import kubernetes_tpu_torch.controller\n"
+        "import kubernetes_tpu_torch.parallel.mesh\n"
+        "import kubernetes_tpu_torch.parallel.resident\n"
+        "import kubernetes_tpu_torch.parallel.resident_kernel\n"
+        "import kubernetes_tpu_torch.parallel.shard\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'kubernetes_tpu')]\n"
         "assert not bad, bad\n"

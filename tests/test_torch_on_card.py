@@ -13,7 +13,10 @@ kernel-path profiles (narrowed tables, the pipeline, the bf16 profile
 with its shadow) on the card against the same calls on the CPU; the
 joint-assignment kernel K7 (auction and beam) against its plain
 version, and the optimizing profile on the pack configs against the
-same calls on the CPU. Each test skips where there is no CUDA device.
+same calls on the CPU; the resident row scatter K8 against its plain
+version, and the mesh drivers (four shards on the card) against the
+single-device driver, a mesh on the CPU and the port's oracle copy.
+Each test skips where there is no CUDA device.
 
 This module imports only torch and the port, so it also runs on a
 machine without JAX:
@@ -632,3 +635,128 @@ def test_optimizing_profile_on_card_matches_cpu(key, cuda_device):
         arms[prof] = S.pack_outcome(cfg["pods"], got, cfg["alloc_mcpu"])
     assert arms["optimizing"]["scheduled"] > arms["greedy"]["scheduled"]
     assert arms["optimizing"]["utilization"] > arms["greedy"]["utilization"]
+
+
+@pytest.mark.parametrize("case", S.SCATTER_CASES,
+                         ids=[c[0] for c in S.SCATTER_CASES])
+def test_scatter_kernel_matches_plain_on_card(case, cuda_device):
+    """K8 on every dtype pair, the node axis first and second, off-shard
+    and padded rows: one launch a shard, each shard's tables equal to
+    its plain version's and to the expected update."""
+    import numpy as np
+
+    from kubernetes_tpu_torch.parallel import resident_kernel as RK
+
+    label, shards, n, M, k, fields = case
+    c = S.scatter_case(shards, n, M, k, seed=11, fields=fields)
+    names = [f[0] for f in c["fields"]]
+    axes = [f[1] for f in c["fields"]]
+    narrowed = frozenset(f[0] for f in c["fields"] if f[2])
+    buf = torch.from_numpy(c["buf"]).to(cuda_device)
+    for s in range(shards):
+        tabs = {nm: torch.from_numpy(v).to(cuda_device)
+                for nm, v in S.scatter_shard_tables(c, s).items()}
+        plain = {nm: t.clone() for nm, t in tabs.items()}
+        launches = RK.LAUNCHES
+        RK.scatter_rows(c["layout"], buf, names, axes,
+                        [tabs[nm] for nm in names], n, s * n, narrowed)
+        assert RK.LAUNCHES == launches + 1
+        RK.scatter_rows_plain(c["layout"], buf, names, axes,
+                              [plain[nm] for nm in names], n, s * n,
+                              narrowed)
+        torch.cuda.synchronize()
+        for nm, ax in zip(names, axes):
+            got, want = tabs[nm].cpu().numpy(), plain[nm].cpu().numpy()
+            exp = c["expected"][nm]
+            window = [slice(None)] * exp.ndim
+            window[ax] = slice(s * n, (s + 1) * n)
+            nan = got.dtype.kind == "f"
+            assert np.array_equal(got, want, equal_nan=nan), (label, nm)
+            assert np.array_equal(got, exp[tuple(window)],
+                                  equal_nan=nan), (label, nm)
+
+
+def test_mesh_on_card_matches_single_device_and_cpu(cuda_device):
+    """The mixed scenario through TorchScheduleAlgorithm(mesh=...) at
+    four shards on the card: names equal to the single-device driver on
+    the card, the same mesh on the CPU and the oracle; K1 launched at the
+    shard width; the dispatch tally equal to the CPU mesh's."""
+    from kubernetes_tpu_torch.parallel.shard import DeviceMesh
+
+    nodes, services = S.mixed_cluster(T, 250)
+    pods = S.mixed_backlog(T)
+    state = ClusterState.build(nodes, services=services)
+    shapes = dict(PK.LAUNCHES_BY_SHAPE)
+    card = TorchScheduleAlgorithm(
+        mesh=DeviceMesh([cuda_device] * 4), device=cuda_device)
+    got = card.schedule_backlog(pods, state)
+    widths = {N for (_J, N, _m), v in PK.LAUNCHES_BY_SHAPE.items()
+              if v > shapes.get((_J, N, _m), 0)}
+    assert widths == {256 // 4}
+    cpu = TorchScheduleAlgorithm(mesh=DeviceMesh(["cpu"] * 4),
+                                 device="cpu")
+    assert got == cpu.schedule_backlog(pods, state)
+    assert card._mesh_sched.dispatches == cpu._mesh_sched.dispatches
+    assert got == TorchScheduleAlgorithm(
+        device=cuda_device).schedule_backlog(pods, state)
+    assert got == GenericScheduler().schedule_backlog(pods, state.clone())
+
+
+def test_mesh_resident_churn_on_card(cuda_device):
+    """Resident waves at four shards on the card: a steady wave ships no
+    table bytes; a label and allocatable change on a few nodes and a
+    node removal scatter through K8 (one launch for each shard owning a
+    changed row), and the names equal a reship run's and the
+    single-device driver's."""
+    from kubernetes_tpu_torch.parallel import resident_kernel as RK
+    from kubernetes_tpu_torch.parallel.shard import DeviceMesh
+
+    nodes = S.density_nodes(T, 200)
+    mesh = DeviceMesh([cuda_device] * 4)
+    algo = TorchScheduleAlgorithm(mesh=mesh, device=cuda_device)
+    reship = TorchScheduleAlgorithm(mesh=mesh, device=cuda_device)
+    reship._mesh_sched.reuse_default = "reship"
+    single = TorchScheduleAlgorithm(device=cuda_device)
+    state = ClusterState.build(nodes)
+    bound = []
+    for w in range(3):
+        pods = S.pause_pods(T, 300, name0=1000 * w)
+        got = algo.schedule_backlog(pods, state)
+        assert got == reship.schedule_backlog(pods, state)
+        assert got == single.schedule_backlog(pods, state)
+        bound += S.bind_hosts(state, pods, got)
+    assert algo._mesh_sched.resident.stats["wave_table_bytes"] == 0
+    changed = S.density_nodes(T, 199)
+    for i in (3, 77, 150):
+        changed[i].metadata.labels = {"disktype": "ssd"}
+        changed[i].status.allocatable = dict(
+            changed[i].status.allocatable, cpu="8")
+    state = ClusterState.build(
+        changed, assigned_pods=[q for q in bound
+                                if q.spec.node_name != "node-0199"])
+    launches = RK.LAUNCHES
+    pods = S.pause_pods(T, 300, name0=5000)
+    got = algo.schedule_backlog(pods, state)
+    assert RK.LAUNCHES - launches == 4
+    assert algo._mesh_sched.resident.stats["scatters"] == 1
+    assert got == reship.schedule_backlog(pods, state)
+    assert got == single.schedule_backlog(pods, state)
+
+
+def test_mesh_scan_on_card_matches_single_device(cuda_device):
+    """MeshBatchScheduler at four shards on the card gives the names of
+    the single-device scan on a small mixed scenario."""
+    from kubernetes_tpu_torch.models.batch import BatchScheduler
+    from kubernetes_tpu_torch.parallel.mesh import MeshBatchScheduler
+    from kubernetes_tpu_torch.parallel.shard import DeviceMesh
+    from kubernetes_tpu_torch.snapshot.encode import SnapshotEncoder
+
+    nodes, services = S.mixed_cluster(T, 60)
+    pods = S.mixed_backlog(T)[:48]
+    state = ClusterState.build(nodes, services=services)
+    enc = SnapshotEncoder(state, pods)
+    snap, batch = enc.encode_nodes(), enc.encode_pods()
+    got = MeshBatchScheduler(DeviceMesh([cuda_device] * 4)).schedule_names(
+        snap, batch)
+    assert got == BatchScheduler(device=cuda_device).schedule_names(
+        snap, batch)
