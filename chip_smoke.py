@@ -2,6 +2,7 @@
 
     python3 chip_smoke.py [--baseline OLD.cu] [--baseline-k3 OLD.cu]
                           [--baseline-k6 OLD.cu] [--baseline-k7 OLD.cu]
+                          [--baseline-k8 OLD.cu]
 
 Phases, each printing one JSON line; any failure raises and exits
 non-zero:
@@ -11,8 +12,10 @@ non-zero:
      zreplay_kernel.cu, K3, one report per template instance; csrc/
      preempt_kernel.cu, K6, one report per template instance; csrc/
      assign_kernel.cu, K7, the auction's and the beam's reports; csrc/
-     chain_floor.cu, the yardsticks of K3 and K7: the chain floor at 128,
-     256 and 1,024 threads and the grid-sync floor) built
+     resident_scatter.cu, K8, one report per template instance; csrc/
+     chain_floor.cu, the yardsticks of K3, K7 and K8: the chain floor at
+     128, 256 and 1,024 threads, the grid-sync floor and the launch
+     floor, an empty kernel) built
      with nvcc for sm_90a from the
      sources in this checkout, in parallel, with ptxas's registers, spills
      and shared memory for each and, for K6, its static SASS counts
@@ -209,11 +212,13 @@ non-zero:
      and whole on 1,024 nodes, a gang of 1,001 x 3 CPU comes back all
      None and a 24-pod wave takes the beam (K7b), each equal to the CPU;
   14. the mesh (parallel/mesh, parallel/resident; every shard on cuda:0,
-     the one card): (a) the row scatter K8 (parallel/resident_kernel.
-     scatter_rows) against its plain version, shard by shard, exact, on
-     scenarios.SCATTER_CASES (every dtype pair the snapshot places, the
-     node axis first and second, 2-D rows, off-shard and padded rows, M
-     = 64 and 1,024, 4 x 2,048 and 1 x 8,192 nodes); (b) phase 4's
+     the one card): (a) the row scatter K8 (parallel/resident_kernel)
+     against its plain version, exact, both one launch a shard
+     (scatter_rows) and one device-wide launch of every shard
+     (scatter_shipment), on scenarios.SCATTER_CASES (every dtype pair
+     the snapshot places, the node axis first and second, 2-D rows,
+     off-shard and padded rows, M = 64 and 1,024, 4 x 2,048 and 1 x
+     8,192 nodes); (b) phase 4's
      density shape through TorchScheduleAlgorithm(mesh=...) at 4 shards
      and at 1: names equal to phase 4's, K1 launched at the shard width
      (2,048 at 4 shards), the wall after a warm-up call, the idle share
@@ -222,13 +227,20 @@ non-zero:
      beside a reship run and one device in lockstep: steady waves ship
      no table bytes and keep every resident tensor's storage; then a
      churn wave (labels and allocatable on MESH_CHURN_NODES nodes, one
-     node removed inside the bucket) launches K8 once for each shard
-     owning a changed row, names equal to the reship run's and one
-     device's; each of those launches is held against the plain version
-     on the tables as they were before it, and the shipment (as the
-     resident state built it: rows at the placed dtypes) is timed with
-     its byte bound, the plain version and the index_copy_ calls that
-     make the same update; (d) MeshBatchScheduler at 4 shards on phase
+     node removed inside the bucket) launches K8 once for each device
+     holding a shard that owns a changed row (once: the shards share the
+     card), names equal to the reship run's and one device's; that
+     launch is held against the plain version on each shard's tables as
+     they were before it, and the shipment (as the resident state built
+     it: rows at the placed dtypes) is timed (queued CUDA events) with
+     its byte bound, its launch bound (the launch floor, csrc/
+     chain_floor.cu's empty kernel timed the same way, times the
+     launches it needs), the plain version and the index_copy_ calls
+     that make the same update; with --baseline-k8, also the first K8 built
+     from OLD.cu (its C interface: one launch an owning shard, e.g. `git
+     show f2e6205:kubernetes_tpu_torch/csrc/resident_scatter.cu`) held
+     to the same shipment and timed in turns (old, new, new, old), with
+     baseline_ms and speedup; (d) MeshBatchScheduler at 4 shards on phase
      5's mixed scenario equal to the single-device scan;
   11. the kernels line, with the launch counts of each path it drove
      (K1's bf16 mode as its own entry, resource_probe_bf16: phase 12's
@@ -2915,154 +2927,303 @@ def k8_abs_err(got, want):
     return int(np.abs(got.astype(np.int64) - want.astype(np.int64)).max())
 
 
+def k8_reports(lib) -> dict:
+    """ptxas's report of each K8 instance: fields (8, 32, 96) x team
+    width (1, 8, 32 threads a row)."""
+    from kubernetes_tpu_torch.native.build import ptxas_report
+
+    return {f"F={f} lanes={n}": ptxas_report(
+        lib, f"resident_scatter_kernelILi{f}ELi{n}E")
+        for f in (8, 32, 96) for n in (1, 8, 32)}
+
+
 def phase_k8(RK, S):
     """14a: K8 against its plain version on every SCATTER_CASES entry
-    (rows at host widths: every dtype pair the kernel widens), shard by
-    shard, exact and equal to the expected update. K8 is timed on the
-    churn wave's own shipment (phase_k8_churn). -> max_abs_err."""
+    (rows at host widths: every dtype pair the kernel widens), twice:
+    one launch a shard (scatter_rows) and one device-wide launch of every
+    shard (scatter_shipment), each exact and equal to the expected
+    update. K8 is timed on the churn wave's own shipment
+    (phase_k8_churn). -> max_abs_err."""
     import numpy as np
 
     rows, err = [], 0
     for case in S.SCATTER_CASES:
         label = case[0]
         c, buf, tabs, names, axes, narrowed = k8_inputs(S, case)
-        n = c["n_per_shard"]
+        n, shards = c["n_per_shard"], c["shards"]
         plain = [{nm: t.clone() for nm, t in tb.items()} for tb in tabs]
-        for s in range(c["shards"]):
+        wide = [{nm: t.clone() for nm, t in tb.items()} for tb in tabs]
+        launches = RK.LAUNCHES
+        for s in range(shards):
             RK.scatter_rows(c["layout"], buf, names, axes,
                             [tabs[s][nm] for nm in names], n, s * n,
                             narrowed)
             RK.scatter_rows_plain(c["layout"], buf, names, axes,
                                   [plain[s][nm] for nm in names], n, s * n,
                                   narrowed)
+        RK.scatter_shipment(c["layout"], buf, names, axes,
+                            [[tb[nm] for nm in names] for tb in wide],
+                            range(shards), n, narrowed)
+        if RK.LAUNCHES - launches != shards + 1:
+            raise AssertionError(f"K8 {label}: {RK.LAUNCHES - launches} "
+                                 f"launches for {shards} shards and one "
+                                 f"device-wide call")
         torch.cuda.synchronize()
         case_err = 0
         for nm, ax in zip(names, axes):
-            got = np.concatenate([tb[nm].cpu().numpy() for tb in tabs],
-                                 axis=ax)
             want = np.concatenate([pl[nm].cpu().numpy() for pl in plain],
                                   axis=ax)
-            case_err = max(case_err, k8_abs_err(got, want))
-            nan = got.dtype.kind == "f"
-            if not (np.array_equal(got, want, equal_nan=nan)
-                    and np.array_equal(got, c["expected"][nm],
-                                       equal_nan=nan)):
-                raise AssertionError(f"K8 {label}: field {nm} differs from "
-                                     f"its plain version")
+            nan = want.dtype.kind == "f"
+            for how, out in (("shard by shard", tabs), ("device-wide", wide)):
+                got = np.concatenate([tb[nm].cpu().numpy() for tb in out],
+                                     axis=ax)
+                case_err = max(case_err, k8_abs_err(got, want))
+                if not (np.array_equal(got, want, equal_nan=nan)
+                        and np.array_equal(got, c["expected"][nm],
+                                           equal_nan=nan)):
+                    raise AssertionError(f"K8 {label} ({how}): field {nm} "
+                                         f"differs from its plain version")
         err = max(err, case_err)
-        rows.append({"label": label, "shards": c["shards"],
+        rows.append({"label": label, "shards": shards,
                      "n_per_shard": n, "M": c["M"], "rows": len(c["rows"]),
                      "fields": len(names), "max_abs_err": case_err,
-                     "matches_plain": True})
+                     "param_bytes": RK.param_bytes(len(names)),
+                     "matches_plain": True,
+                     "device_wide_matches_plain": True})
     emit("k8_vs_plain", cases=rows)
     return err
 
 
+def phase_launch_floor(chain_lib) -> float:
+    """The launch floor: csrc/chain_floor.cu's empty kernel (one block of
+    32 threads), launched through ctypes back to back and timed with
+    queued_ms exactly as K8 is. -> ms a launch."""
+    import ctypes
+
+    fn = ctypes.CDLL(chain_lib).launch_floor_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+
+    def launch():
+        err = fn(1, 32, torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"launch_floor launch failed: error {err}")
+
+    ms = queued_ms(launch, reps=21, inner=10)
+    emit("launch_floor", blocks=1, threads=32, ms=ms)
+    return ms
+
+
+def shipment_owned(call) -> int:
+    """The packed rows that a captured K8 launch's shards own."""
+    n = call["n_per_shard"]
+    idx = call["idx"]
+    return int(sum(((idx >= s * n) & (idx < (s + 1) * n)).sum()
+                   for s in call["shards"]))
+
+
 def shipment_bound_bytes(RK, shipment) -> int:
     """The bytes K8 must move for a captured shipment (one entry a
-    launch): each shard's owned rows read once at their shipped widths
-    and written once at their placed widths, and __idx__ read once by
-    each launch."""
+    launch, a launch a device): the rows its shards own read once at
+    their shipped widths and written once at their placed widths, and
+    __idx__ read once by each launch."""
     import numpy as np
 
     total = 0
     for call in shipment:
         seg = RK._segments(call["layout"])
-        idx = call["idx"]
-        n, off = call["n_per_shard"], call["offset"]
-        owned = int(((idx >= off) & (idx < off + n)).sum())
-        for nm, dst in zip(call["names"], call["after"]):
-            elems = dst.numel() // n
+        owned = shipment_owned(call)
+        for nm, dst in zip(call["names"], call["after"][0]):
+            elems = dst.numel() // call["n_per_shard"]
             total += owned * elems * (np.dtype(seg[nm][1]).itemsize
                                       + dst.element_size())
-        total += idx.size * 8
+        total += call["idx"].size * 8
     return total
 
 
-def phase_k8_churn(RK, shards, shipment):
-    """14c's K8 shipment on the card: each captured launch's plain
-    version on the tables as they were before it equals what K8 left
-    (exact), then the shipment's device time (one launch an owning
-    shard, on copies of the tables: the same rows land again) beside
-    its byte bound, the plain version and the index_copy_ calls that
-    make the same update. -> (the row, max_abs_err)."""
+def load_baseline_k8(path):
+    """A K8 library built from the first resident_scatter.cu (f2e6205), its
+    resident_scatter_launch declared with that C interface (buf, idx_off,
+    M, n_per_shard, offset, n_fields, desc of 6 a field, stream)."""
+    import ctypes
+
+    lib = ctypes.CDLL(path)
+    fn = lib.resident_scatter_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                   ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
+                   ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p]
+    return lib
+
+
+def baseline_k8_launcher(RK, lib, shipment, tabs):
+    """The first K8's loop on a captured shipment: one launch of the baseline
+    library for each owning shard, into `tabs` (per call, per shard, per
+    field), its descriptors (src_off, dst, outer, inner, src and dst
+    codes) made once. -> a function that launches them all."""
+    import ctypes
+
+    launches = []
+    for call, per_shard in zip(shipment, tabs):
+        seg = RK._segments(call["layout"])
+        idx_off, _dt, (M,) = seg["__idx__"]
+        n = call["n_per_shard"]
+        for s, dests in zip(call["shards"], per_shard):
+            desc = []
+            for nm, ax, dst in zip(call["names"], call["axes"], dests):
+                off, dt, _shape = seg[nm]
+                outer, inner = RK._axis_strides(tuple(dst.shape), ax)
+                desc += [off, dst.data_ptr(), outer, inner,
+                         RK._src_code(dt), RK._dst_code(dst)]
+            launches.append((call["buf"].data_ptr(), idx_off, M, n, s * n,
+                             len(call["names"]),
+                             (ctypes.c_longlong * len(desc))(*desc)))
+
+    def launch():
+        stream = torch.cuda.current_stream().cuda_stream
+        for args in launches:
+            err = lib.resident_scatter_launch(*args, stream)
+            if err != 0:
+                raise RuntimeError(f"baseline K8 launch failed: CUDA error "
+                                   f"{err}")
+
+    return launch, len(launches)
+
+
+def phase_k8_churn(RK, shards, shipment, floor_ms, old=None):
+    """14c's K8 shipment on the card: each captured launch (one a device:
+    every owning shard on it) against the plain version on the tables as
+    they were before it, shard by shard (exact); then the shipment's
+    device time (on copies of the tables, through a destination table of
+    the copies built once: the same rows land again) beside its byte
+    bound, its launch bound (floor_ms, the empty kernel's time, times the
+    launches it needs), the plain version and the index_copy_ calls that
+    make the same update. old: (the first K8's library, its ptxas report) to
+    hold to the same shipment (one launch an owning shard) and time in
+    turns old, new, new, old. -> (the row, max_abs_err)."""
     from kubernetes_tpu_torch.models.pack import unpack
 
     err = 0
     for call in shipment:
         call["idx"] = unpack(call["layout"], call["buf"],
                              call["narrowed"])["__idx__"].cpu().numpy()
-        args = (call["layout"], call["buf"], call["names"], call["axes"])
-        tail = (call["n_per_shard"], call["offset"], call["narrowed"])
-        plain = [t.clone() for t in call["before"]]
-        RK.scatter_rows_plain(*args, plain, *tail)
-        for nm, got, want in zip(call["names"], call["after"], plain):
-            e = k8_abs_err(got, want)
-            err = max(err, e)
-            if not torch.equal(got, want):
-                raise AssertionError(f"K8 on the churn wave: field {nm} of "
-                                     f"shard offset {call['offset']} "
-                                     f"differs from its plain version")
-    tabs = [[t.clone() for t in call["after"]] for call in shipment]
-    plain_tabs = [[t.clone() for t in call["after"]] for call in shipment]
+        n = call["n_per_shard"]
+        for s, before, after in zip(call["shards"], call["before"],
+                                    call["after"]):
+            plain = [t.clone() for t in before]
+            RK.scatter_rows_plain(call["layout"], call["buf"], call["names"],
+                                  call["axes"], plain, n, s * n,
+                                  call["narrowed"])
+            for nm, got, want in zip(call["names"], after, plain):
+                err = max(err, k8_abs_err(got, want))
+                if not torch.equal(got, want):
+                    raise AssertionError(f"K8 on the churn wave: field {nm} "
+                                         f"of shard {s} differs from its "
+                                         f"plain version")
+
+    def copies():
+        return [[[t.clone() for t in after] for after in call["after"]]
+                for call in shipment]
+
+    tabs, plain_tabs = copies(), copies()
+    tables = [RK.DestTable(call["buf"].device, call["n_shards"], {
+        nm: {s: per[s_i][f] for s_i, s in enumerate(call["shards"])}
+        for f, nm in enumerate(call["names"])})
+        for call, per in zip(shipment, tabs)]
 
     def kernel():
-        for call, tb in zip(shipment, tabs):
-            RK.scatter_rows(call["layout"], call["buf"], call["names"],
-                            call["axes"], tb, call["n_per_shard"],
-                            call["offset"], call["narrowed"])
+        for call, per, table in zip(shipment, tabs, tables):
+            RK.scatter_shipment(call["layout"], call["buf"], call["names"],
+                                call["axes"], per, call["shards"],
+                                call["n_per_shard"], call["narrowed"],
+                                table=table)
 
     def plain_fn():
-        for call, tb in zip(shipment, plain_tabs):
-            RK.scatter_rows_plain(call["layout"], call["buf"],
-                                  call["names"], call["axes"], tb,
-                                  call["n_per_shard"], call["offset"],
-                                  call["narrowed"])
+        for call, per in zip(shipment, plain_tabs):
+            n = call["n_per_shard"]
+            for s, dests in zip(call["shards"], per):
+                RK.scatter_rows_plain(call["layout"], call["buf"],
+                                      call["names"], call["axes"], dests, n,
+                                      s * n, call["narrowed"])
 
     # the library yardstick: index_copy_ of the unpacked rows at
-    # precomputed local indices, one call a field a shard
+    # precomputed local indices, one call a field an owning shard
     lib_args = []
-    for call, tb in zip(shipment, plain_tabs):
+    for call, per in zip(shipment, plain_tabs):
         unpacked = unpack(call["layout"], call["buf"], call["narrowed"])
         idx = unpacked["__idx__"]
-        n, off = call["n_per_shard"], call["offset"]
-        local = idx - off
-        keep = torch.nonzero((idx >= 0) & (local >= 0)
-                             & (local < n)).flatten()
-        for nm, ax, dst in zip(call["names"], call["axes"], tb):
-            lib_args.append((dst.movedim(ax, 0), local[keep].clone(),
-                             unpacked[nm][keep].to(dst.dtype).contiguous()))
+        n = call["n_per_shard"]
+        for s, dests in zip(call["shards"], per):
+            local = idx - s * n
+            keep = torch.nonzero((idx >= 0) & (local >= 0)
+                                 & (local < n)).flatten()
+            for nm, ax, dst in zip(call["names"], call["axes"], dests):
+                lib_args.append((dst.movedim(ax, 0), local[keep].clone(),
+                                 unpacked[nm][keep].to(dst.dtype)
+                                 .contiguous()))
 
     def library():
         for dst, at, src in lib_args:
             dst.index_copy_(0, at, src)
 
+    old_row = {}
+    fns = {"new": kernel}
+    if old is not None:
+        old_tabs = [[[t.clone() for t in before] for before in call["before"]]
+                    for call in shipment]
+        check, old_launches = baseline_k8_launcher(RK, old[0], shipment,
+                                                   old_tabs)
+        check()
+        torch.cuda.synchronize()
+        for call, per in zip(shipment, old_tabs):
+            for after, got in zip(call["after"], per):
+                if not all(torch.equal(a, b) for a, b in zip(got, after)):
+                    raise AssertionError("baseline K8 differs from its "
+                                         "plain version on the churn wave")
+        fns["old"], _n = baseline_k8_launcher(RK, old[0], shipment, tabs)
+        old_row = {"baseline_launches_per_call": old_launches,
+                   "baseline_ptxas": old[1], "baseline_matches_plain": True}
+    turns = ("old", "new", "new", "old") if old is not None else ("new",)
+    times = {"old": [], "new": []}
     launches = RK.LAUNCHES
-    ms = queued_ms(kernel, reps=21, inner=10)
-    if RK.LAUNCHES - launches != (21 * 10 + 1) * len(shipment):
+    for which in turns:
+        times[which].append(queued_ms(fns[which], reps=21, inner=10))
+    timed = len(times["new"]) * (21 * 10 + 1) * len(shipment)
+    if RK.LAUNCHES - launches != timed:
         raise AssertionError("K8's timed calls did not launch it once for "
-                             "each owning shard")
-    for call, tb in zip(shipment, tabs):
-        if not all(torch.equal(a, b) for a, b in zip(tb, call["after"])):
-            raise AssertionError("K8's timed calls changed the tables")
+                             "each device holding an owning shard")
+    for call, per in zip(shipment, tabs):
+        for after, got in zip(call["after"], per):
+            if not all(torch.equal(a, b) for a, b in zip(got, after)):
+                raise AssertionError("K8's timed calls changed the tables")
+    ms = statistics.mean(times["new"])
     bound_bytes = shipment_bound_bytes(RK, shipment)
     bound_ms = bound_bytes / HBM_BYTES_PER_S * 1e3
+    launch_bound_ms = floor_ms * len(shipment)
     call = shipment[0]
     row = {"label": "churn wave", "shards": shards,
            "n_per_shard": call["n_per_shard"], "M": int(call["idx"].size),
-           "rows": sum(int(((c["idx"] >= c["offset"])
-                            & (c["idx"] < c["offset"] + c["n_per_shard"])
-                            ).sum()) for c in shipment),
+           "rows": sum(shipment_owned(c) for c in shipment),
+           "owning_shards": [list(c["shards"]) for c in shipment],
            "fields": len(call["names"]), "field_names": call["names"],
-           "dtypes": [str(t.dtype) for t in call["after"]],
+           "dtypes": [str(t.dtype) for t in call["after"][0]],
+           "param_bytes": RK.param_bytes(len(call["names"])),
            "max_abs_err": err, "matches_plain": True, "ms": ms,
-           "ms_per_launch": ms / len(shipment),
+           "new_ms": times["new"], "ms_per_launch": ms / len(shipment),
            "launches_per_call": len(shipment),
            "plain_ms": cuda_ms(plain_fn, reps=11, inner=5),
            "library_ms": queued_ms(library, reps=21, inner=10),
            "library_calls": len(lib_args), "bound_ms": bound_ms,
            "bound_by": "bytes", "bound_share": bound_ms / ms,
-           "bound_bytes": bound_bytes}
+           "bound_bytes": bound_bytes, "launch_floor_ms": floor_ms,
+           "launch_bound_ms": launch_bound_ms,
+           "launch_share": launch_bound_ms / ms, **old_row}
+    if old is not None:
+        old_ms = statistics.mean(times["old"])
+        row.update(baseline_ms=old_ms, old_ms=times["old"],
+                   speedup=old_ms / ms,
+                   baseline_launch_share=floor_ms * old_row[
+                       "baseline_launches_per_call"] / old_ms)
     emit("k8_churn", **row)
     return row, err
 
@@ -3129,8 +3290,9 @@ def phase_mesh_waves(PK, RK, T, ClusterState, TorchScheduleAlgorithm,
     lockstep: names equal, steady waves ship no table bytes and keep
     every resident tensor's storage. Then the churn wave: labels and
     allocatable change on MESH_CHURN_NODES nodes and one node goes (the
-    bucket stays 8,192): each shard owning a changed row launches K8,
-    names equal the reship run's and one device's. -> (K1 launches and
+    bucket stays 8,192): K8 launches once for each device holding a shard
+    that owns a changed row (once: the shards share the card), names
+    equal the reship run's and one device's. -> (K1 launches and
     shapes over the waves, K8's launches and shapes on the churn wave,
     its K8 calls as phase_k8_churn takes them)."""
     n_nodes, n_pods = MESH_SIZE
@@ -3221,45 +3383,53 @@ def phase_mesh_waves(PK, RK, T, ClusterState, TorchScheduleAlgorithm,
     before = dict(res.stats)
     pods = S.pause_pods(T, per, name0=n_pods)
     # keep each K8 call of the churn wave (its shipment as the resident
-    # state built it, the shard's tables before and after) for 14c's
+    # state built it, its shards' tables before and after) for 14c's
     # check and timing; the copies are a few small tensors
-    shipment, scatter = [], RK.scatter_rows
+    shipment, scatter = [], RK.scatter_shipment
 
-    def kept(layout, buf, names, axes, dests, n_per_shard, offset,
-             narrowed=frozenset()):
+    def kept(layout, buf, names, axes, shard_dests, shard_ids, n_per_shard,
+             narrowed=frozenset(), table=None):
         ours = {id(t) for ts in list(res._static.values())
                 + list(res._carry.values()) for t in ts}
         call = None
-        if id(dests[0]) in ours:  # the mesh run's, not the reship run's
+        if id(shard_dests[0][0]) in ours:  # the mesh run's
             call = {"layout": layout, "buf": buf, "names": list(names),
                     "axes": list(axes), "n_per_shard": n_per_shard,
-                    "offset": offset, "narrowed": narrowed,
-                    "before": [d.clone() for d in dests]}
+                    "shards": [int(s) for s in shard_ids],
+                    "n_shards": table.n_shards, "narrowed": narrowed,
+                    "before": [[d.clone() for d in dests]
+                               for dests in shard_dests]}
             shipment.append(call)
-        scatter(layout, buf, names, axes, dests, n_per_shard, offset,
-                narrowed)
+        scatter(layout, buf, names, axes, shard_dests, shard_ids,
+                n_per_shard, narrowed, table=table)
         if call is not None:
-            call["after"] = [d.clone() for d in dests]
+            call["after"] = [[d.clone() for d in dests]
+                             for dests in shard_dests]
 
-    RK.scatter_rows = kept
+    RK.scatter_shipment = kept
     try:
         wave(pods, state)
     finally:
-        RK.scatter_rows = scatter
+        RK.scatter_shipment = scatter
     n_per_shard = (1 << (max(n_nodes, 64) - 1).bit_length()) // k
-    owners = len({i // n_per_shard for i in churned + [gone]})
+    owners = sorted({i // n_per_shard for i in churned + [gone]})
+    # one launch for each device holding an owning shard: 1 on the card
+    plan = RK.launch_plan([MESH_DEVICE] * k, owners, n_per_shard)
     k8, k8_shapes = mine["k8"], [
-        {"M": M, "n_per_shard": n, "fields": f, "launches": c}
-        for (M, n, f), c in sorted(mine["k8_shapes"].items())]
+        {"M": M, "n_per_shard": n, "fields": f, "shards": sh, "launches": c}
+        for (M, n, f, sh), c in sorted(mine["k8_shapes"].items())]
     churn_k1, churn_k1_shapes = mine["k1"], shapes(mine["k1_shapes"])
-    if k8 != owners or res.stats["scatters"] != before["scatters"] + 1 \
+    if k8 != len(plan) or res.stats["scatters"] != before["scatters"] + 1 \
             or res.stats["rebuilds"] != before["rebuilds"] \
-            or len(shipment) != k8:
+            or len(shipment) != k8 \
+            or [c["shards"] for c in shipment] != [list(p.shards)
+                                                   for p in plan]:
         raise AssertionError(f"mesh churn: K8 {k8} launches for {owners} "
-                             f"owning shards ({len(shipment)} kept), "
-                             f"stats {res.stats}")
+                             f"owning shards on {len(plan)} devices "
+                             f"({len(shipment)} kept), stats {res.stats}")
     row = {"shards": k, "waves": waves, "churned_nodes": len(churned),
-           "removed_node": gone_name, "k8_launches": k8,
+           "removed_node": gone_name, "owning_shards": owners,
+           "k8_launches": k8,
            "k8_launches_by_shape": k8_shapes,
            "churn_last_changed": res.stats.get("last_changed"),
            "resident_stats": dict(res.stats), "k1_launches": k1,
@@ -3307,9 +3477,10 @@ def phase_mesh_scan(T, ClusterState, S, DeviceMesh, k=4):
 
 
 def phase_mesh(PK, RK, T, ClusterState, TorchScheduleAlgorithm, S,
-               density_names, density_wall):
-    """Phase 14, the mesh: -> (K8's row, K1 launches and shapes by path,
-    K8 launches and shapes)."""
+               density_names, density_wall, floor_ms, old_k8=None):
+    """Phase 14, the mesh (floor_ms: the launch floor; old_k8: the first K8's
+    library and ptxas report, --baseline-k8): -> (K8's row, K1 launches
+    and shapes by path, K8 launches and shapes)."""
     from kubernetes_tpu_torch.parallel.shard import DeviceMesh
 
     t0 = time.perf_counter()
@@ -3324,7 +3495,7 @@ def phase_mesh(PK, RK, T, ClusterState, TorchScheduleAlgorithm, S,
     k = MESH_SHARDS[0]
     n, sh, n_churn, sh_churn, k8, k8_shapes, shipment = phase_mesh_waves(
         PK, RK, T, ClusterState, TorchScheduleAlgorithm, DeviceMesh, S, k)
-    k8_row, churn_err = phase_k8_churn(RK, k, shipment)
+    k8_row, churn_err = phase_k8_churn(RK, k, shipment, floor_ms, old_k8)
     k8_err = max(case_err, churn_err)
     k1_paths["mesh_waves"] = n - n_churn
     k1_shapes["mesh_waves"] = sh
@@ -3423,6 +3594,11 @@ def main() -> int:
     ap.add_argument("--baseline-k7", metavar="OLD.cu",
                     help="also check and time the joint-assignment solve "
                     "(K7) built from this source against this checkout's")
+    ap.add_argument("--baseline-k8", metavar="OLD.cu",
+                    help="also check and time the row scatter (K8) built "
+                    "from this source (the first K8's C interface: one "
+                    "launch a shard) against this checkout's on the churn "
+                    "shipment")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3474,7 +3650,8 @@ def run(args, jobs) -> int:
     baselines = [(flag, src, name) for flag, src, name in (
         ("k3", args.baseline_k3, "zreplay_kernel_baseline"),
         ("k6", args.baseline_k6, "preempt_kernel_baseline"),
-        ("k7", args.baseline_k7, "assign_kernel_baseline")) if src]
+        ("k7", args.baseline_k7, "assign_kernel_baseline"),
+        ("k8", args.baseline_k8, "resident_scatter_baseline")) if src]
     for _flag, src, name in baselines:
         builds.append(lambda src=src, name=name: build_cuda_file(
             os.path.abspath(src), name))
@@ -3487,6 +3664,7 @@ def run(args, jobs) -> int:
     k3_ptxas = k3_reports(k3_lib)
     k6_ptxas = k6_reports(k6_lib)
     k7_ptxas = k7_reports(k7_lib)
+    k8_ptxas = k8_reports(k8_lib)
     emit("build", kernels=["resource_probe", "zreplay", "victim_score",
                            "assign", "chain_floor", "resident_scatter"],
          seconds=time.perf_counter() - t0,
@@ -3502,9 +3680,10 @@ def run(args, jobs) -> int:
                         chain_lib, f"chain_floor_kernelILi{n}E")
                        for n in (K3_THREADS, 1024, BEAM_CHAIN_THREADS)},
                     "grid_sync": ptxas_report(chain_lib,
-                                              "grid_sync_floor_kernel")},
-                "resident_scatter": ptxas_report(
-                    k8_lib, "resident_scatter_kernel")},
+                                              "grid_sync_floor_kernel"),
+                    "launch_floor": ptxas_report(chain_lib,
+                                                 "launch_floor_kernel")},
+                "resident_scatter": k8_ptxas},
          c_replay=replay._load_lib() is not None)
 
     times, max_err = phase_kernel(PK, S)
@@ -3561,9 +3740,16 @@ def run(args, jobs) -> int:
     profile_bf16, profile_bf16_shapes = phase_profiles(
         PK, S, TorchScheduleAlgorithm, jobs)
     opt_paths = phase_optimizing(PK, AK, jobs)
+    floor_ms = phase_launch_floor(chain_lib)
+    old_k8 = None
+    if "k8" in old_paths:
+        old_k8 = (load_baseline_k8(old_paths["k8"]),
+                  ptxas_report(old_paths["k8"], "resident_scatter_kernel"))
+        emit("baseline_k8_build", source=args.baseline_k8,
+             ptxas=old_k8[1], new_ptxas=k8_ptxas)
     k8, k8_err, mesh_k1, mesh_k1_shapes, k8_launches, k8_shapes = \
         phase_mesh(PK, RK, T, ClusterState, TorchScheduleAlgorithm, S,
-                   density_names, density_wall)
+                   density_names, density_wall, floor_ms, old_k8)
 
     # the density path probes J=128 over the 5,000 nodes padded to 8,192;
     # the zoned density path runs one 50,000-pick run in a 65,536 bucket
@@ -3698,13 +3884,22 @@ def run(args, jobs) -> int:
         "max_abs_err": k8_err,
         "matches_plain": True,
         "shape": {k: k8[k] for k in ("shards", "n_per_shard", "M", "rows",
-                                     "fields")},
+                                     "fields", "owning_shards")},
         "ms": k8["ms"],
         "ms_per_launch": k8["ms_per_launch"],
+        "launches_per_call": k8["launches_per_call"],
         "plain_ms": k8["plain_ms"],
         "bound_ms": k8["bound_ms"],
         "bound_by": k8["bound_by"],
         "bound_share": k8["bound_share"],
+        "bound_bytes": k8["bound_bytes"],
+        "launch_floor_ms": k8["launch_floor_ms"],
+        "launch_bound_ms": k8["launch_bound_ms"],
+        "launch_share": k8["launch_share"],
+        "baseline_ms": k8.get("baseline_ms"),
+        "speedup": k8.get("speedup"),
+        "param_bytes": k8["param_bytes"],
+        "ptxas": k8_ptxas,
         "library_ms": k8["library_ms"],
         "library": "index_copy_",
         "library_calls": k8["library_calls"],

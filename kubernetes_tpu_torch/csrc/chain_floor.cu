@@ -16,7 +16,13 @@
 // cooperative launch; launched with the K7 auction's grid, block size and
 // dynamic shared memory (so its blocks sit on the SMs as the auction's
 // do), its time over `steps` is the least time of one of the auction's
-// grid syncs. chip_smoke.py times both with CUDA events.
+// grid syncs.
+//
+// launch_floor_kernel does nothing at all: launched as K8
+// (csrc/resident_scatter.cu) is, through a plain C call from ctypes on
+// the current stream, back to back, its time a launch is the least time
+// any launch takes, the bound of a kernel whose bytes take nanoseconds.
+// chip_smoke.py times all three with CUDA events.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -57,6 +63,8 @@ __global__ void grid_sync_floor_kernel(i64* out, int steps) {
     if (blockIdx.x == 0 && threadIdx.x == 0) out[0] = steps;
 }
 
+__global__ void launch_floor_kernel() {}
+
 // Plain C interface for ctypes. Returns cudaGetLastError() after the
 // launch (0 == cudaSuccess), or -1 when threads is not 128, 256 or 1,024.
 extern "C" int chain_floor_launch(void* out, int steps, int threads,
@@ -88,5 +96,12 @@ extern "C" int grid_sync_floor_launch(void* out, int steps, int blocks,
                                       dim3(blocks), dim3(threads), args,
                                       (size_t)smem, (cudaStream_t)stream);
     if (err != cudaSuccess) return (int)err;
+    return (int)cudaGetLastError();
+}
+
+// One launch of the empty kernel: `blocks` x `threads`. Returns the
+// launch's error (0 == cudaSuccess).
+extern "C" int launch_floor_launch(int blocks, int threads, void* stream) {
+    launch_floor_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>();
     return (int)cudaGetLastError();
 }

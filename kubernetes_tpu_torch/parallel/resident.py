@@ -20,14 +20,19 @@ wave driver's node tables live on the mesh's devices across waves:
   snapshot.
 * Scatter updates: a node add, remove or update inside the padded node
   bucket ships only the changed rows, in one packed buffer, which the
-  row scatter K8 (parallel/resident_kernel.scatter_rows; its plain
-  version on the CPU) writes into the resident tensors, one launch for
-  each shard owning a changed row. A full rebuild happens only on
-  topology change.
+  row scatter K8 (parallel/resident_kernel.scatter_shipment; its plain
+  version on the CPU) writes into the resident tensors: one launch for
+  each distinct device holding a shard that owns a changed row, every
+  such shard and every field in it. Each distinct device keeps a table
+  of its node-axis tensors' pointers on the device (resident_kernel.
+  DestTable), built when the tables are placed. A full rebuild happens
+  only on topology change.
 * In place: the folds, the scatter and a re-placed field update the
   resident tensors in place (copy_ into the same storage), the
   counterpart of the JAX package's donation; `stats` counts every
-  host-to-device byte, as there.
+  host-to-device byte, as there, save one the JAX package has no
+  counterpart of: the destination tables' copy at each placement (node-
+  axis fields x the mesh's shards x 8 bytes a distinct device).
 
 Deviation from kubernetes_tpu/parallel/resident.py <module>: the
 PartitionSpecs of carry_specs/static_specs become the node-axis index of
@@ -254,6 +259,8 @@ class ResidentClusterState:
         self._m_carry: Dict[str, np.ndarray] = {}
         self._last: int = 0
         self._valid = {b: True for b in CARRY_BLOCKS}
+        # distinct device -> its K8 destination table (_place_all)
+        self._dest_tables: Dict[torch.device, RK.DestTable] = {}
         self.stats = {
             "rebuilds": 0, "scatters": 0, "replaces": 0, "waves": 0,
             "h2d_bytes_total": 0, "wave_h2d_bytes": 0,
@@ -364,8 +371,23 @@ class ResidentClusterState:
         self._last = int(hc["__last__"])
         self._valid = {b: True for b in CARRY_BLOCKS}
         self._key = key
+        self._dest_tables = self._build_dest_tables(sspec, cspec)
         for a in list(placed.values()) + [hc[f] for f in CARRY_FIELDS]:
             self.count_h2d(np.asarray(a).nbytes, table=True)
+
+    def _build_dest_tables(self, sspec: dict, cspec: dict) -> dict:
+        """A K8 destination table for each distinct device over every
+        node-axis field of every shard on it. Only a placement makes new
+        tensors: the folds, the scatter and _rewrite write into them, so
+        the tables stay right until the next _place_all."""
+        sharded = {f: ts for f, ts in self._static.items()
+                   if sspec[f] is not None}
+        sharded.update((f, self._carry[f]) for f in CARRY_FIELDS
+                       if cspec[f] is not None)
+        return {d: RK.DestTable(d, self.mesh.size, {
+            f: {s: ts[s] for s, sd in enumerate(self.mesh.devices)
+                if sd == d} for f, ts in sharded.items()})
+            for d in self.mesh.distinct_devices()}
 
     def _block_of(self, field: str) -> Optional[str]:
         for b, members in CARRY_BLOCKS.items():
@@ -459,8 +481,9 @@ class ResidentClusterState:
 
     def _scatter(self, fields, rows: np.ndarray) -> None:
         """Ship ONLY the changed rows: one packed buffer (one transfer a
-        distinct device) and one K8 launch for each shard owning a
-        changed row, updating every changed field in place."""
+        distinct device) and one K8 launch for each distinct device
+        holding a shard that owns a changed row (RK.launch_plan), every
+        such shard and every changed field in it, in place."""
         from kubernetes_tpu_torch.models.pack import pack_arrays
         from kubernetes_tpu_torch.snapshot.pad import next_pow2
 
@@ -485,14 +508,15 @@ class ResidentClusterState:
         layout, buf = pack_arrays(packed)
         n_per_shard = self._m_carry["port_mask"].shape[0] // self.mesh.size
         bufs = {d: upload(buf, d) for d in self.mesh.distinct_devices()}
-        owners = set((rows // n_per_shard).tolist())
-        for s, d in enumerate(self.mesh.devices):
-            if s not in owners:
-                continue  # no row of this shard changed
-            RK.scatter_rows(layout, bufs[d], names, axes,
-                            [self._tensors(f)[s] for f in names],
-                            n_per_shard, s * n_per_shard,
-                            narrowed=frozenset(narrowed))
+        for launch in RK.launch_plan(self.mesh.devices,
+                                     (rows // n_per_shard).tolist(),
+                                     n_per_shard):
+            RK.scatter_shipment(
+                layout, bufs[launch.device], names, axes,
+                [[self._tensors(f)[s] for f in names]
+                 for s in launch.shards],
+                launch.shards, n_per_shard, narrowed=frozenset(narrowed),
+                table=self._dest_tables[launch.device])
         for f, host, _ax in fields:
             self._mirror(f, host)
         self.count_h2d(buf.nbytes, table=True)

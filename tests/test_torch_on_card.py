@@ -641,8 +641,10 @@ def test_optimizing_profile_on_card_matches_cpu(key, cuda_device):
                          ids=[c[0] for c in S.SCATTER_CASES])
 def test_scatter_kernel_matches_plain_on_card(case, cuda_device):
     """K8 on every dtype pair, the node axis first and second, off-shard
-    and padded rows: one launch a shard, each shard's tables equal to
-    its plain version's and to the expected update."""
+    and padded rows: one launch a shard, then one device-wide launch of
+    every shard (and one of the even shards, which leaves the odd ones as
+    they were); each shard's tables equal to its plain version's and to
+    the expected update."""
     import numpy as np
 
     from kubernetes_tpu_torch.parallel import resident_kernel as RK
@@ -653,27 +655,81 @@ def test_scatter_kernel_matches_plain_on_card(case, cuda_device):
     axes = [f[1] for f in c["fields"]]
     narrowed = frozenset(f[0] for f in c["fields"] if f[2])
     buf = torch.from_numpy(c["buf"]).to(cuda_device)
+
+    def fresh():
+        return [{nm: torch.from_numpy(v).to(cuda_device)
+                 for nm, v in S.scatter_shard_tables(c, s).items()}
+                for s in range(shards)]
+
+    def check(tabs, done):
+        torch.cuda.synchronize()
+        for s in range(shards):
+            for nm, ax in zip(names, axes):
+                got = tabs[s][nm].cpu().numpy()
+                src = c["expected"] if s in done else c["old"]
+                window = [slice(None)] * src[nm].ndim
+                window[ax] = slice(s * n, (s + 1) * n)
+                nan = got.dtype.kind == "f"
+                assert np.array_equal(got, src[nm][tuple(window)],
+                                      equal_nan=nan), (label, nm, s)
+
+    tabs, plain = fresh(), fresh()
     for s in range(shards):
-        tabs = {nm: torch.from_numpy(v).to(cuda_device)
-                for nm, v in S.scatter_shard_tables(c, s).items()}
-        plain = {nm: t.clone() for nm, t in tabs.items()}
         launches = RK.LAUNCHES
         RK.scatter_rows(c["layout"], buf, names, axes,
-                        [tabs[nm] for nm in names], n, s * n, narrowed)
+                        [tabs[s][nm] for nm in names], n, s * n, narrowed)
         assert RK.LAUNCHES == launches + 1
         RK.scatter_rows_plain(c["layout"], buf, names, axes,
-                              [plain[nm] for nm in names], n, s * n,
+                              [plain[s][nm] for nm in names], n, s * n,
                               narrowed)
-        torch.cuda.synchronize()
-        for nm, ax in zip(names, axes):
-            got, want = tabs[nm].cpu().numpy(), plain[nm].cpu().numpy()
-            exp = c["expected"][nm]
-            window = [slice(None)] * exp.ndim
-            window[ax] = slice(s * n, (s + 1) * n)
-            nan = got.dtype.kind == "f"
-            assert np.array_equal(got, want, equal_nan=nan), (label, nm)
-            assert np.array_equal(got, exp[tuple(window)],
-                                  equal_nan=nan), (label, nm)
+    check(tabs, range(shards))
+    check(plain, range(shards))
+    for part in (range(0, shards, 2), range(shards)):
+        tabs = fresh()
+        ids = list(part)
+        launches = RK.LAUNCHES
+        RK.scatter_shipment(c["layout"], buf, names, axes,
+                            [[tabs[s][nm] for nm in names] for s in ids],
+                            ids, n, narrowed)
+        assert RK.LAUNCHES == launches + 1
+        check(tabs, ids)
+
+
+def test_scatter_shipment_checks_its_table_on_card(cuda_device):
+    """A device-wide launch through a destination table: it raises on a
+    tensor placed anew (the table points at the old one) and on a shard
+    outside the table's mesh, and launches once with the right one."""
+    import numpy as np
+
+    from kubernetes_tpu_torch.parallel import resident_kernel as RK
+
+    c = S.scatter_case(4, 256, 64, 30, seed=3, fields="update")
+    names = [f[0] for f in c["fields"]]
+    axes = [f[1] for f in c["fields"]]
+    buf = torch.from_numpy(c["buf"]).to(cuda_device)
+    tabs = [{nm: torch.from_numpy(v).to(cuda_device)
+             for nm, v in S.scatter_shard_tables(c, s).items()}
+            for s in range(4)]
+    table = RK.DestTable(cuda_device, 4, {
+        nm: {s: tabs[s][nm] for s in range(4)} for nm in names})
+    dests = [[tb[nm] for nm in names] for tb in tabs]
+    moved = [list(d) for d in dests]
+    moved[2][0] = moved[2][0].clone()
+    with pytest.raises(ValueError, match="not the tensor"):
+        RK.scatter_shipment(c["layout"], buf, names, axes, moved, range(4),
+                            256, table=table)
+    with pytest.raises(ValueError, match="outside a mesh of 4"):
+        RK.scatter_shipment(c["layout"], buf, names, axes, dests + dests[:1],
+                            range(5), 256, table=table)
+    launches = RK.LAUNCHES
+    RK.scatter_shipment(c["layout"], buf, names, axes, dests, range(4), 256,
+                        table=table)
+    torch.cuda.synchronize()
+    assert RK.LAUNCHES == launches + 1
+    for nm, ax in zip(names, axes):
+        got = np.concatenate([tb[nm].cpu().numpy() for tb in tabs], axis=ax)
+        assert np.array_equal(got, c["expected"][nm],
+                              equal_nan=got.dtype.kind == "f"), nm
 
 
 def test_mesh_on_card_matches_single_device_and_cpu(cuda_device):
@@ -705,9 +761,9 @@ def test_mesh_on_card_matches_single_device_and_cpu(cuda_device):
 def test_mesh_resident_churn_on_card(cuda_device):
     """Resident waves at four shards on the card: a steady wave ships no
     table bytes; a label and allocatable change on a few nodes and a
-    node removal scatter through K8 (one launch for each shard owning a
-    changed row), and the names equal a reship run's and the
-    single-device driver's."""
+    node removal scatter through K8 (one launch: the four shards share
+    the card), and the names equal a reship run's and the single-device
+    driver's."""
     from kubernetes_tpu_torch.parallel import resident_kernel as RK
     from kubernetes_tpu_torch.parallel.shard import DeviceMesh
 
@@ -737,7 +793,7 @@ def test_mesh_resident_churn_on_card(cuda_device):
     launches = RK.LAUNCHES
     pods = S.pause_pods(T, 300, name0=5000)
     got = algo.schedule_backlog(pods, state)
-    assert RK.LAUNCHES - launches == 4
+    assert RK.LAUNCHES - launches == 1
     assert algo._mesh_sched.resident.stats["scatters"] == 1
     assert got == reship.schedule_backlog(pods, state)
     assert got == single.schedule_backlog(pods, state)

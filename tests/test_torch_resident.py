@@ -165,18 +165,230 @@ def test_scatter_rows_plain_matches_jax_scatter(case):
             equal_nan=nan), (label, nm)
 
 
+def _case_inputs(case, seed=5):
+    """A SCATTER_CPU_CASES entry -> (case, names, axes, narrowed, buffer,
+    each shard's tables {name: tensor})."""
+    label, shards, n, M, k, fields = case
+    c = S.scatter_case(shards, n, M, k, seed=seed, fields=fields)
+    names = [f[0] for f in c["fields"]]
+    axes = [f[1] for f in c["fields"]]
+    narrowed = frozenset(f[0] for f in c["fields"] if f[2])
+    tabs = [{nm: torch.from_numpy(v)
+             for nm, v in S.scatter_shard_tables(c, s).items()}
+            for s in range(shards)]
+    return c, names, axes, narrowed, torch.from_numpy(c["buf"]), tabs
+
+
+def _assert_expected(c, names, axes, narrowed, tabs, label, jax_out=None):
+    for nm, ax in zip(names, axes):
+        got = np.concatenate([tb[nm].numpy() for tb in tabs], axis=ax)
+        want = c["expected"][nm]
+        nan = want.dtype.kind == "f"
+        assert got.dtype == want.dtype, (label, nm)
+        assert np.array_equal(got, want, equal_nan=nan), (label, nm)
+        if jax_out is not None:
+            jx = jax_out[nm]
+            assert np.array_equal(
+                jx.astype(want.dtype) if nm not in narrowed else jx, want,
+                equal_nan=nan), (label, nm)
+
+
+def _table(names, tabs):
+    """A DestTable on the CPU over every shard's tables."""
+    return RK.DestTable("cpu", len(tabs), {
+        nm: {s: tb[nm] for s, tb in enumerate(tabs)} for nm in names})
+
+
+@pytest.mark.parametrize("case", S.SCATTER_CPU_CASES,
+                         ids=[c[0] for c in S.SCATTER_CPU_CASES])
+def test_scatter_shipment_plain_matches_jax_scatter(case):
+    """The device-wide entry scatter_shipment (its plain version on the
+    CPU), one call for every shard of the case with the shards' pointer
+    table, equals the JAX package's _scatter_fn on the same packed rows
+    and the expected update, on every dtype pair."""
+    c, names, axes, narrowed, buf, tabs = _case_inputs(case)
+    shards = c["shards"]
+    RK.scatter_shipment(c["layout"], buf, names, axes,
+                        [[tb[nm] for nm in names] for tb in tabs],
+                        range(shards), c["n_per_shard"], narrowed,
+                        table=_table(names, tabs))
+    _assert_expected(c, names, axes, narrowed, tabs, case[0],
+                     _jax_scatter(c))
+
+
+def _load_bits(raw, p, code):
+    width, kind = code & 0xff, code >> 8
+    v = int.from_bytes(raw[p:p + width].tobytes(), "little",
+                       signed=kind == RK.KIND_SIGNED)
+    return v & (2**64 - 1)
+
+
+def _store_bits(out, p, code, v):
+    width, kind = code & 0xff, code >> 8
+    if kind == RK.KIND_BOOL:
+        out[p] = 1 if v != 0 else 0
+        return
+    out[p:p + width] = np.frombuffer(
+        (v & (2**(8 * width) - 1)).to_bytes(width, "little"), np.uint8)
+
+
+def reenact_k8(buf: torch.Tensor, table: RK.DestTable, a: RK.LaunchArgs,
+               memory: dict) -> None:
+    """csrc/resident_scatter.cu's kernel thread by thread on the CPU: the
+    field on blockIdx.y, a team of a.lanes threads a row, the shard from
+    idx // n_per_shard and the launch's bit set, the destination from the
+    device table (memory: pointer -> the tensor's bytes), the 16-byte
+    path where the copy keeps its code (not bool) and every segment and
+    its destination are 16-byte aligned, else element by element with
+    (a, b) stepped by the team's width."""
+    raw = buf.numpy()
+    base = buf.data_ptr()
+    dests = table.table.numpy()
+    n = a.n_per_shard
+    idx = raw[a.idx_off:a.idx_off + 8 * a.M].view(np.int64)
+    for src_off, outer, inner, codes, row in a.desc:
+        src_code, dst_code = codes & 0xffff, codes >> 16
+        src_w, dst_w = src_code & 0xff, dst_code & 0xff
+        per_row = outer * inner
+        for t in range(a.M * a.lanes):
+            m, lane = t // a.lanes, t % a.lanes
+            g = int(idx[m])
+            if g < 0:
+                continue
+            s = g // n
+            if s >= a.n_shards or not (a.mask[s >> 6] >> (s & 63)) & 1:
+                continue
+            local = g - s * n
+            ptr = int(dests[row * a.n_shards + s])
+            out = memory[ptr]
+            if per_row == 0:
+                continue
+            r0 = src_off + m * per_row * src_w
+            if src_code == dst_code and dst_code >> 8 != RK.KIND_BOOL:
+                ln = inner * src_w
+                vec = ln % 16 == 0 and all(
+                    ((base + r0 + k * ln) | (ptr + (k * n + local) * ln))
+                    % 16 == 0 for k in range(outer))
+                if vec:
+                    for k in range(outer):
+                        for ch in range(lane, ln // 16, a.lanes):
+                            d0 = (k * n + local) * ln + 16 * ch
+                            s0 = r0 + k * ln + 16 * ch
+                            out[d0:d0 + 16] = raw[s0:s0 + 16]
+                    continue
+            ai, b = 0, lane
+            while b >= inner and ai < outer:
+                b -= inner
+                ai += 1
+            e = lane
+            while e < per_row:
+                v = _load_bits(raw, r0 + e * src_w, src_code)
+                _store_bits(out, ((ai * n + local) * inner + b) * dst_w,
+                            dst_code, v)
+                b += a.lanes
+                while b >= inner:
+                    b -= inner
+                    ai += 1
+                e += a.lanes
+
+
+@pytest.mark.parametrize("lanes", (1, 8, 32))
+@pytest.mark.parametrize("case", S.SCATTER_CPU_CASES,
+                         ids=[c[0] for c in S.SCATTER_CPU_CASES])
+def test_kernel_walk_reenacted(case, lanes):
+    """The kernel's walk, re-enacted thread by thread over the wrapper's
+    own launch arguments (launch_args: codes, strides, table rows, the
+    shard bit set) at each team width: one launch of the even shards
+    leaves the odd ones as they were, one of the odd shards then
+    completes the expected update, every dtype pair included."""
+    c, names, axes, narrowed, buf, tabs = _case_inputs(case)
+    shards, n = c["shards"], c["n_per_shard"]
+    table = _table(names, tabs)
+    memory = {t.data_ptr(): t.numpy().view(np.uint8).reshape(-1)
+              for tb in tabs for t in tb.values()}
+    # the widest rows: 48 bytes (the (6, N) block) and 32 (4 label words
+    # widened to int64): a team of 8
+    for part in (range(0, shards, 2), range(1, shards, 2)):
+        ids = list(part)
+        if not ids:
+            continue
+        a = RK.launch_args(c["layout"], buf, names, axes,
+                           [[tabs[s][nm] for nm in names] for s in ids],
+                           ids, n, narrowed, table)
+        assert a.lanes == 8 and a.n_shards == shards
+        reenact_k8(buf, table, a._replace(lanes=lanes), memory)
+        if ids[0] == 0:
+            for s in range(1, shards, 2):
+                for nm, v in S.scatter_shard_tables(c, s).items():
+                    assert np.array_equal(tabs[s][nm].numpy(), v,
+                                          equal_nan=v.dtype.kind == "f")
+    _assert_expected(c, names, axes, narrowed, tabs, case[0])
+
+
+@pytest.mark.parametrize("devices, owners, want", [
+    (["cuda:0", "cuda:1"] * 4, (6, 0, 3, 1, 3),
+     [("cuda:0", (0, 6)), ("cuda:1", (1, 3))]),
+    (["cuda:0", "cuda:1"] * 4, (5, 7), [("cuda:1", (5, 7))]),
+    (["cuda:0"] * 4, (3, 1, 2), [("cuda:0", (1, 2, 3))]),
+    (["cuda:1", "cuda:0", "cuda:0", "cuda:1"], (2, 3, 1),
+     [("cuda:0", (1, 2)), ("cuda:1", (3,))]),
+], ids=["alternating", "one device owns", "one card", "first owner first"])
+def test_launch_plan_groups_owning_shards_by_device(devices, owners, want):
+    """The resident scatter's launch plan: one launch for each device
+    that holds an owning shard, each with its own shards in mesh order
+    and their first global nodes (no card is touched: the devices are
+    only compared)."""
+    n = 2048
+    plan = RK.launch_plan([torch.device(d) for d in devices], owners, n)
+    assert [(str(p.device), p.shards) for p in plan] == want
+    for p in plan:
+        assert p.offsets == tuple(s * n for s in p.shards)
+        assert all(torch.device(devices[s]) == p.device for s in p.shards)
+
+
 def test_scatter_rows_checks_its_inputs():
     c = S.scatter_case(2, 16, 64, 8, seed=1, fields="update")
     names = [f[0] for f in c["fields"]]
     axes = [f[1] for f in c["fields"]]
     tabs = S.scatter_shard_tables(c, 0)
     dests = [torch.from_numpy(tabs[nm]) for nm in names]
+    buf = torch.from_numpy(c["buf"])
     with pytest.raises(ValueError, match="no kernel"):
-        RK.scatter_rows(c["layout"], torch.from_numpy(c["buf"]).to("meta"),
-                        names, axes, dests, 16, 0)
+        RK.scatter_rows(c["layout"], buf.to("meta"), names, axes, dests,
+                        16, 0)
     assert RK._src_code(np.dtype(np.uint32)) == 4 | RK.KIND_UNSIGNED << 8
     assert RK._dst_code(torch.zeros(1, dtype=torch.int8)) == 1
     assert RK._axis_strides((2, 16, 3), 1) == (2, 3)
+    # the device-wide entry: a shard outside the mesh, a destination on
+    # another device than the buffer, a table that points elsewhere, a
+    # shard twice, a plan of a shard past the mesh
+    stale = RK.DestTable("cpu", 2, {nm: {0: d.clone()}
+                                    for nm, d in zip(names, dests)})
+    with pytest.raises(ValueError, match="outside a mesh of 2"):
+        RK.scatter_shipment(c["layout"], buf, names, axes, [dests], [2],
+                            16, table=stale)
+    with pytest.raises(ValueError, match="outside a mesh of 2"):
+        RK.scatter_shipment(c["layout"], buf, names, axes, [dests], [-1],
+                            16, table=stale)
+    with pytest.raises(ValueError, match="lies on meta"):
+        RK.scatter_shipment(c["layout"], buf, names, axes,
+                            [dests[:-1] + [dests[-1].to("meta")]], [0], 16)
+    with pytest.raises(ValueError, match="not the tensor"):
+        RK.scatter_shipment(c["layout"], buf, names, axes, [dests], [0], 16,
+                            table=stale)
+    with pytest.raises(ValueError, match="outside the table"):
+        stale.check(names, [3], [dests])
+    with pytest.raises(ValueError, match="twice"):
+        RK.scatter_shipment(c["layout"], buf, names, axes, [dests, dests],
+                            [0, 0], 16)
+    with pytest.raises(ValueError, match="outside a mesh of 2"):
+        RK.launch_plan(["cpu", "cpu"], [0, 2], 16)
+    with pytest.raises(ValueError, match="not a shard's first node"):
+        RK.scatter_rows(c["layout"], buf, names, axes, dests, 16, 8)
+    with pytest.raises(ValueError, match="do not fit"):
+        RK.launch_args(c["layout"], buf, names, axes, [dests[1:] + dests[:1]],
+                       [0], 16, frozenset(), _table(names, [dict(
+                           zip(names, dests))]))
 
 
 # -- steady waves ---------------------------------------------------------------
@@ -434,3 +646,60 @@ def test_narrowed_tables_rebuild_wider_when_a_value_outgrows_them():
     off = ResidentClusterState(port_mesh(2), quant_mode="off")
     off.sync(cfg, psnap, 0)
     assert off._static["zone_id"][0].dtype == torch.int64
+
+
+def _table_points_at_resident(res):
+    """Every node-axis tensor of every shard is where its device's K8
+    destination table points."""
+    from kubernetes_tpu_torch.parallel.resident import (
+        carry_specs,
+        static_specs,
+    )
+
+    sspec = static_specs(res._static.keys())
+    cspec = dict(zip(CARRY_FIELDS, carry_specs()))
+    fields = {f: ts for f, ts in res._static.items() if sspec[f] is not None}
+    fields.update((f, res._carry[f]) for f in CARRY_FIELDS
+                  if cspec[f] is not None)
+    assert set(res._dest_tables) == set(res.mesh.distinct_devices())
+    for d, table in res._dest_tables.items():
+        assert set(table.rows) == set(fields)
+        assert table.n_shards == res.mesh.size
+        assert np.array_equal(table.table.numpy(), table.ptrs.reshape(-1))
+        for f, ts in fields.items():
+            for s, t in enumerate(ts):
+                want = t.data_ptr() if res.mesh.devices[s] == d else 0
+                assert table.ptrs[table.rows[f], s] == want, (f, s)
+
+
+def test_dest_tables_follow_the_placement():
+    """The resident state's K8 destination tables: one a distinct device
+    over every node-axis field of every shard, built at placement; a row
+    scatter and a wholesale re-place write in place and keep them; a
+    rebuild (a narrowed table outgrowing int8) builds them anew. (Their
+    copies stay out of `stats`: the tests above hold the bytes to the JAX
+    package's, which has no such table.)"""
+    from kubernetes_tpu_torch.models.batch import SchedulerConfig
+    from kubernetes_tpu_torch.snapshot.carry import snapshot_from_arrays
+
+    state = JaxState.build(_nodes(JT, 40))
+    _s, _b, psnap, _pb = _encode(state, _pods(JT, 1))
+    res = ResidentClusterState(port_mesh(4), quant_mode="int")
+    cfg = SchedulerConfig()
+    res.sync(cfg, psnap, 0)
+    _table_points_at_resident(res)
+    tables = dict(res._dest_tables)
+    fields = fields_of(psnap)
+    zone = np.array(psnap.zone_id, copy=True)
+    zone[3] = 5
+    res.sync(cfg, snapshot_from_arrays(dict(fields, zone_id=zone)), 0)
+    assert res.stats["scatters"] == 1 and res._dest_tables == tables
+    zone[:] = 7  # every row: above SCATTER_FRAC, a wholesale re-place
+    res.sync(cfg, snapshot_from_arrays(dict(fields, zone_id=zone)), 0)
+    assert res.stats["replaces"] == 1 and res._dest_tables == tables
+    _table_points_at_resident(res)
+    zone[4] = 300
+    res.sync(cfg, snapshot_from_arrays(dict(fields, zone_id=zone)), 0)
+    assert res.stats["rebuilds"] == 2
+    assert all(res._dest_tables[d] is not tables[d] for d in tables)
+    _table_points_at_resident(res)
