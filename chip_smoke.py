@@ -242,12 +242,32 @@ non-zero:
      to the same shipment and timed in turns (old, new, new, old), with
      baseline_ms and speedup; (d) MeshBatchScheduler at 4 shards on phase
      5's mixed scenario equal to the single-device scan;
+  15. the contract audit on the card (analysis/programs, analysis/
+     program_audit): (a) every program of the port's registry (the JAX
+     registry's names less mesh_assign_auction, the mesh programs over
+     four shards on the card) run for real on CUDA tensors at the
+     registry's shapes, once unarmed and then under the audit's
+     recorder with its dispatch under torch.cuda.set_sync_debug_mode(
+     "error") (the collect outside it): no synchronizing call, its
+     device-to-host copies equal to its declaration and to the count of
+     the same program traced on fake CUDA tensors (an interpreter that
+     sees no card, started with the run),
+     its kernels launched as the wrappers' counters show and as many
+     times as the fake trace reached them, and no finding of the audit's
+     rules; one line a program; (b) the rebuild sentinel
+     (analysis/compile_guard.CompileSentinel) over the warm calls of
+     phases 4, 4b, 8 (wave 2), 9a (the waves after the warm-up), 13 (the
+     measured and traced calls) and 14c (the steady waves and the churn
+     wave): any kernel-library build or load inside one fails the run;
+     one line with each window's events (0);
   11. the kernels line, with the launch counts of each path it drove
      (K1's bf16 mode as its own entry, resource_probe_bf16: phase 12's
      bf16 arms are its path; K7's auction and beam as assign_auction and
      assign_beam: phase 13 is their path; K1's mesh paths; K8 as
      resident_scatter, the churn wave its path); then nvidia-smi's line,
      then the result line {"ok": true, "device": {...}}.
+
+Phase 15 runs after phase 14, before the kernels line.
 
 Every idle share comes from a profiler trace kept only when its K1, K3,
 K6 and K7 events equal the launches the wrappers counted during the
@@ -269,6 +289,7 @@ the port's package is not beside this script.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import io
 import json
 import math
@@ -339,6 +360,24 @@ PROFILE_WARM = 2
 
 #: the script's start, for the elapsed seconds of every phase line
 T0 = time.perf_counter()
+
+#: phase 15 (b): the rebuild sentinel (analysis/compile_guard) over the
+#: warm calls of phases 4, 4b, 8, 9a, 13 and 14c, and each guarded
+#: window's build and load events (0, or the run failed)
+SENTINEL = None
+GUARDED: dict = {}
+
+
+@contextlib.contextmanager
+def steady(label):
+    """A warm, steady-state window: a kernel-library build or load inside
+    it fails the run (CompileSentinel.expect_no_compiles)."""
+    before = SENTINEL.compile_count()
+    try:
+        with SENTINEL.expect_no_compiles(label):
+            yield
+    finally:
+        GUARDED[label] = SENTINEL.compile_count() - before
 
 
 def emit(phase: str, **kw) -> None:
@@ -413,6 +452,28 @@ def queued_ms(fn, reps, inner) -> float:
     return statistics.median(times)
 
 
+#: the kernel a trace starts with (torch.cuda._sleep's) and its length
+#: in cycles; it is left out of every sum a trace gives
+PRIMER_KERNEL, PRIMER_CYCLES = "spin_kernel", 1000
+
+
+@contextlib.contextmanager
+def cuda_trace():
+    """A profiler trace of the card's activity -> the profile; the first
+    thing in it is a short primer kernel. On the H100, once other
+    processes had been started, a trace would lose its first device
+    event, at times all of them; traces that start with the primer kept
+    every event (python -m kubernetes_tpu_torch.harness.trace_probe).
+    Here the first trace of a K6 or K7 case still came back empty at
+    times, so the callers take a trace again when it falls short. Sums
+    over a trace leave the primer out (PRIMER_KERNEL)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(PRIMER_CYCLES)
+        yield prof
+
+
 def kernel_device_ms(fn, name, n=20, tries=8, events=False):
     """-> (mean device time of the kernel `name` per launch, summed device
     time of every kernel per call of fn, in ms, over n calls of fn, each
@@ -426,20 +487,18 @@ def kernel_device_ms(fn, name, n=20, tries=8, events=False):
     else fn queues) and marks `seen` with "events". (Traces on the H100
     have kept as few as 0 of 20 launches, in phase 3 and after it, and
     once none in 8 traces running; the rows print `traces`.)"""
-    from torch.profiler import ProfilerActivity, profile
-
     fn()
     torch.cuda.synchronize()
     seen = []
     for _ in range(tries):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with cuda_trace() as prof:
             for _ in range(n):
                 fn()
             torch.cuda.synchronize()
         total_us, count, all_us, whole = 0.0, 0, 0.0, True
         for ev in prof.key_averages():
             us = getattr(ev, "device_time_total", 0.0)
-            if not us:
+            if not us or PRIMER_KERNEL in ev.key:
                 continue
             all_us += us
             whole = whole and ev.count % n == 0
@@ -471,19 +530,18 @@ def device_busy_ms(fn, kernels, tries=5):
     only the device's activity: the host's ops would add their own cost
     to the wall (and to the idle share) and to calls that launch
     millions of kernels."""
-    from torch.profiler import ProfilerActivity, profile
-
     seen = []
     for _ in range(tries):
         before = {k: m.LAUNCHES for k, m in kernels.items()}
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        shapes_before = launch_shapes(kernels)
+        with cuda_trace() as prof:
             t0 = time.perf_counter()
             fn()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         launched = {k: m.LAUNCHES - before[k] for k, m in kernels.items()}
         busy_ms, events = trace_busy(prof, kernels)
-        seen.append(events)
+        seen.append(trace_entry(events, launched, kernels, shapes_before))
         if events == launched:
             return busy_ms, wall, launched, seen
     raise RuntimeError(f"{tries} profiler traces recorded {seen} kernel "
@@ -498,12 +556,32 @@ def trace_busy(prof, kernels) -> tuple:
     events = dict.fromkeys(kernels, 0)
     busy_us = 0.0
     for ev in prof.key_averages():
-        if ev.device_type == torch.autograd.DeviceType.CUDA:
+        if ev.device_type == torch.autograd.DeviceType.CUDA \
+                and PRIMER_KERNEL not in ev.key:
             busy_us += ev.self_device_time_total
         for k in kernels:
             if k in ev.key:
                 events[k] += ev.count
     return (busy_us / 1e3 if busy_us else None), events
+
+
+def launch_shapes(kernels) -> dict:
+    """{kernel: a copy of its wrapper's LAUNCHES_BY_SHAPE}."""
+    return {k: dict(m.LAUNCHES_BY_SHAPE) for k, m in kernels.items()}
+
+
+def trace_entry(events, launched, kernels, shapes_before):
+    """One trace's entry in `seen`: its kernel events, or, for a trace
+    that recorded other counts than the wrappers', also the launches
+    counted during it by shape, to tell a dropped event from a launch
+    counted that ran nothing."""
+    if events == launched:
+        return events
+    return {"events": events, "launched_by_shape": {
+        k: {str(s): n - shapes_before[k].get(s, 0)
+            for s, n in m.LAUNCHES_BY_SHAPE.items()
+            if n != shapes_before[k].get(s, 0)}
+        for k, m in kernels.items()}}
 
 
 def idle_fields(busy_ms, wall, launched, seen) -> dict:
@@ -1327,22 +1405,23 @@ def optimizing_cpu_names():
     return names, seconds
 
 
-def traced_call(fn, kernels, solve_symbol, tries=3):
+def traced_call(fn, kernels, solve_symbol, tries=8):
     """device_busy_ms for a call that also reports the device time of the
-    kernel solve_symbol: -> (fn's result, idle fields, solve ms)."""
-    from torch.profiler import ProfilerActivity, profile
-
+    kernel solve_symbol: -> (fn's result, idle fields, solve ms). (Phase
+    13's traces on the H100 have kept 0 of 1 and 2 of 3 K1 launches, and
+    2 of 3 three traces running; the rows print `trace_kernel_events`.)"""
     seen = []
     for _ in range(tries):
         before = {k: m.LAUNCHES for k, m in kernels.items()}
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        shapes_before = launch_shapes(kernels)
+        with cuda_trace() as prof:
             t0 = time.perf_counter()
             out = fn()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         launched = {k: m.LAUNCHES - before[k] for k, m in kernels.items()}
         busy_ms, events = trace_busy(prof, kernels)
-        seen.append(events)
+        seen.append(trace_entry(events, launched, kernels, shapes_before))
         if events == launched:
             solve_us = sum(ev.self_device_time_total
                            for ev in prof.key_averages()
@@ -1389,10 +1468,11 @@ def phase_optimizing(PK, AK, jobs):
         algo = optimizing_algorithm("cuda", cfg, prof)
         reset(PK, AK)
         torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        names = algo.schedule_backlog(pods, state, gangs=gangs)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        with steady(f"13 {label}"):
+            t0 = time.perf_counter()
+            names = algo.schedule_backlog(pods, state, gangs=gangs)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
         k1, k7 = PK.LAUNCHES, AK.LAUNCHES
         k7_shapes = [{"solver": s, "P": P, "N": N, "launches": k}
                      for (s, P, N), k in sorted(AK.LAUNCHES_BY_SHAPE.items())]
@@ -1406,12 +1486,14 @@ def phase_optimizing(PK, AK, jobs):
             # launches make a trace that takes minutes to read, so its
             # idle share is not measured here (phase 6 traces the scan)
             algo._last_node_index = 0
-            traced, idle, solve_ms = traced_call(
-                lambda: algo.schedule_backlog(pods, state, gangs=gangs),
-                kernels if label != "beam_wave" else {
-                    "resource_probe_kernel": PK, "assign_beam_kernel": AK},
-                "assign_beam_kernel" if label == "beam_wave"
-                else "assign_auction_kernel")
+            with steady(f"13 {label} traced"):
+                traced, idle, solve_ms = traced_call(
+                    lambda: algo.schedule_backlog(pods, state, gangs=gangs),
+                    kernels if label != "beam_wave" else {
+                        "resource_probe_kernel": PK,
+                        "assign_beam_kernel": AK},
+                    "assign_beam_kernel" if label == "beam_wave"
+                    else "assign_auction_kernel")
             if traced != names:
                 raise AssertionError(f"phase 13 {label}: the traced call "
                                      f"chose other nodes")
@@ -1485,10 +1567,11 @@ def phase_main_path(PK, ZK, T, ClusterState, TorchScheduleAlgorithm, S):
     algo = TorchScheduleAlgorithm(device="cuda")
     reset(PK, ZK)
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    names = algo.schedule_backlog(pods, state)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    with steady("4 main path"):
+        t0 = time.perf_counter()
+        names = algo.schedule_backlog(pods, state)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
     launches = PK.LAUNCHES
     by_shape = shapes(PK.LAUNCHES_BY_SHAPE)
     tally = dict(algo._wave.dispatches)
@@ -1560,10 +1643,11 @@ def phase_zoned_density(PK, ZK, T, ClusterState, TorchScheduleAlgorithm, S,
     algo = TorchScheduleAlgorithm(device="cuda")
     reset(PK, ZK)
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    names = algo.schedule_backlog(pods, state)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    with steady("4b zoned density"):
+        t0 = time.perf_counter()
+        names = algo.schedule_backlog(pods, state)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
     k1, k3 = PK.LAUNCHES, ZK.LAUNCHES
     k1_shapes, k3_shapes = shapes(PK.LAUNCHES_BY_SHAPE), k3_shapes_of(ZK)
     tally = dict(algo._wave.dispatches)
@@ -1748,9 +1832,8 @@ def policy_cpu_names(name, n_nodes, services, per):
 def host_jobs(pool, S) -> dict:
     """Start the run's host-only reference computations in `pool`, so
     that they overlap the card's phases: the serial oracle of phases 5
-    and 6, phase 6's CPU runs, the CPU flows of phases 8 and 9b and
-    phase 12's CPU run. -> {key:
-    AsyncResult}."""
+    and 6, phase 6's CPU runs, the CPU flows of phases 8 and 9b, and
+    phase 12's and phase 13's CPU runs. -> {key: AsyncResult}."""
     jobs = {"mixed_oracle": pool.apply_async(mixed_oracle_names,
                                              MIXED_SIZE)}
     for name in S.POLICY_DOCUMENTS:
@@ -1987,14 +2070,16 @@ def phase_extender(T, S, scheme, TorchExtenderServer, n_nodes=5000,
 
 
 def gang_flow(device, n_nodes, per_node, singles, gangs, members, big,
-              on_cycle=None):
+              on_cycle=None, guard=None):
     """The gang phase's director flow on `device`: a bound_cluster of
     n_nodes nodes holding per_node priority-0 pods each and a gang_wave;
     wave 1 through GangDirector.plan_wave -> TorchScheduleAlgorithm.
     schedule_backlog(gangs=) -> after_wave (the priority-10 gang parks and
     the director plans its victims); wave 2 reruns that gang on the wave-1
     state without its victims. on_cycle(), when given, is called just
-    before wave 1 (the card's run resets its launch counts there).
+    before wave 1 (the card's run resets its launch counts there);
+    guard(label), when given, is a context manager around wave 2 (the
+    card's run's rebuild sentinel).
     -> {"waves": [director_wave outcome, ...], "statuses", "victims"
     (names), "victim_priorities", "dispatches": [per wave], "timings":
     [per wave], "place_gang_s", "score_s", "build_s"}."""
@@ -2022,10 +2107,13 @@ def gang_flow(device, n_nodes, per_node, singles, gangs, members, big,
     with Stopwatch(G, "_place_gang") as place, \
             Stopwatch(director._scorer, "score") as score:
         for pods, st in ((wave, state), (big_pods, None)):
+            window = contextlib.nullcontext()
             if st is None:
                 st = S.evict(state, evicted)
+                if guard is not None:
+                    window = guard("8 gangs wave 2")
             # the wave returns host lists, so its time includes the card's
-            with Stopwatch(director, "plan_wave") as plan, \
+            with window, Stopwatch(director, "plan_wave") as plan, \
                     Stopwatch(algo, "schedule_backlog") as sched, \
                     Stopwatch(director, "after_wave") as after:
                 t0 = time.perf_counter()
@@ -2091,7 +2179,8 @@ def phase_gangs(PK, VK, jobs):
         reset(PK, VK)
         torch.cuda.synchronize()
 
-    out = gang_flow("cuda", *GANG_SIZE, on_cycle=reset_counts)
+    out = gang_flow("cuda", *GANG_SIZE, on_cycle=reset_counts,
+                    guard=steady)
     k1, k1_shapes = PK.LAUNCHES, shapes(PK.LAUNCHES_BY_SHAPE)
     k6, k6_shapes = VK.LAUNCHES, k6_shapes_of(VK)
     if k1 <= 0 or k6 <= 0:
@@ -2162,6 +2251,9 @@ def phase_daemon(PK, ZK, T, S, TorchScheduleAlgorithm, one_shot_names,
             sw.reset()
         reset(PK, ZK)
         torch.cuda.synchronize()
+        # the waves after the warm-up, guarded until the queue is empty
+        marks["window"] = steady("9a daemon waves")
+        marks["window"].__enter__()
         marks["ends"] = [time.perf_counter()]
         return algo
 
@@ -2171,6 +2263,7 @@ def phase_daemon(PK, ZK, T, S, TorchScheduleAlgorithm, one_shot_names,
                                 time.perf_counter()))
         torch.cuda.synchronize()
         wall = time.perf_counter() - marks["ends"][0]
+        marks["window"].__exit__(None, None, None)
     k1, k1_shapes = PK.LAUNCHES, shapes(PK.LAUNCHES_BY_SHAPE)
     algo = algos[0]
     binds = out["binds"]
@@ -2452,8 +2545,6 @@ def phase_wire(PK, ZK, ClusterState, TorchScheduleAlgorithm):
     serial scan (torch ops; no hand kernel yet, ROADMAP queue 2 K2), so
     its K1 launches are printed, not required. -> (10a's K1 launches,
     shapes)."""
-    from torch.profiler import ProfilerActivity, profile
-
     from kubernetes_tpu_torch.harness import creator, perf
     from kubernetes_tpu_torch.metrics import scheduler_e2e_latency
     from kubernetes_tpu_torch.scheduler import algorithm, core, factory
@@ -2486,20 +2577,22 @@ def phase_wire(PK, ZK, ClusterState, TorchScheduleAlgorithm):
             for sw in parts.values():
                 sw.reset()
             reset(PK, ZK)
+            rec["shapes_before"] = launch_shapes(kernels)
             torch.cuda.synchronize()
-            rec["prof"] = profile(activities=[ProfilerActivity.CUDA])
-            rec["prof"].__enter__()
+            rec["trace"] = cuda_trace()
+            rec["prof"] = rec["trace"].__enter__()
             rec["t0"] = time.perf_counter()
 
         def after(sched, client):
             torch.cuda.synchronize()
             rec["wall"] = time.perf_counter() - rec["t0"]
-            rec["prof"].__exit__(None, None, None)
+            rec["trace"].__exit__(None, None, None)
             launched = {k: m.LAUNCHES for k, m in kernels.items()}
             rec["k1"], rec["k1_shapes"] = (PK.LAUNCHES,
                                            shapes(PK.LAUNCHES_BY_SHAPE))
             rec["busy_ms"], events = trace_busy(rec["prof"], kernels)
-            seen.append(events)
+            seen.append(trace_entry(events, launched, kernels,
+                                    rec["shapes_before"]))
             if events != launched:
                 raise TraceShort(f"{events} against {launched}")
             rec["launched"] = launched
@@ -3348,7 +3441,10 @@ def phase_mesh_waves(PK, RK, T, ClusterState, TorchScheduleAlgorithm,
     ptrs = None
     for w in range(MESH_WAVES):
         pods = S.pause_pods(T, per, name0=w * per)
-        got = wave(pods, state)
+        # wave 0 warms the resident state; the steady waves are guarded
+        with (steady(f"14c mesh wave {w}") if w
+              else contextlib.nullcontext()):
+            got = wave(pods, state)
         bound += S.bind_hosts(state, pods, got)
         if w == 0:
             ptrs = {(f, s): t.data_ptr() for f, ts in
@@ -3408,7 +3504,8 @@ def phase_mesh_waves(PK, RK, T, ClusterState, TorchScheduleAlgorithm,
 
     RK.scatter_shipment = kept
     try:
-        wave(pods, state)
+        with steady("14c churn wave"):
+            wave(pods, state)
     finally:
         RK.scatter_shipment = scatter
     n_per_shard = (1 << (max(n_nodes, 64) - 1).bit_length()) // k
@@ -3580,6 +3677,113 @@ def k7_entry(solver, times, err, ptxas, paths) -> dict:
     }
 
 
+# -- phase 15: the contract audit --------------------------------------------
+
+
+def start_fake_audit() -> subprocess.Popen:
+    """Phase 15's yardstick, started at once beside the card's phases: an
+    interpreter that sees no card (CUDA_VISIBLE_DEVICES empty, as the CPU
+    tests run it; a fake tensor on a CUDA build otherwise touches the
+    real device of its index, and the mesh's fake shards name cuda:0..
+    cuda:3) tracing every registered program on fake CUDA tensors."""
+    code = ("import json, sys; sys.path.insert(0, %r); import chip_smoke; "
+            "out, s = chip_smoke.fake_audit_counts(); "
+            "print(json.dumps({'counts': out, 'seconds': s}))"
+            % os.path.dirname(os.path.abspath(__file__)))
+    return subprocess.Popen(
+        [sys.executable, "-c", code], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True,
+        env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
+
+
+def fake_audit_result(proc: subprocess.Popen, timeout: float = 600):
+    """start_fake_audit()'s traces -> fake_audit_counts()'s result."""
+    out, err = proc.communicate(timeout=timeout)
+    if proc.returncode != 0:
+        raise AssertionError(f"the fake-tensor traces failed:\n{err}")
+    row = json.loads(out.strip().splitlines()[-1])
+    return row["counts"], row["seconds"]
+
+
+def fake_audit_counts():
+    """Every registered program traced on fake CUDA tensors
+    (analysis/program_audit) -> ({name: {"d2h", "host_leaves",
+    "kernels", "findings"}}, seconds)."""
+    from kubernetes_tpu_torch.analysis import program_audit as PA
+
+    t0 = time.perf_counter()
+    reg = PA.FakeRegistry(include_mesh=True)
+    out = {}
+    for spec in reg.specs:
+        trace = reg.trace_program(spec)
+        out[spec.name] = {
+            "d2h": trace.d2h, "host_leaves": trace.host_leaves,
+            "kernels": dict(trace.kernels),
+            "findings": [f"{f.rule}: {f.message}" for f in
+                         PA.audit_trace(spec, trace) if not f.suppressed]}
+    return out, time.perf_counter() - t0
+
+
+def phase_contract_audit(fake):
+    """15 (a): every program of the port's registry run for real on the
+    card, its dispatch under torch.cuda.set_sync_debug_mode("error"):
+    the device-to-host copies a dispatch equal to its declaration and to
+    the fake trace's count, no synchronizing call, its kernels launched
+    (the wrappers' counters) as many times as the fake trace reached
+    them, no finding of the audit's rules. One line a program. fake:
+    fake_audit_counts()'s result. -> the rows."""
+    from kubernetes_tpu_torch.analysis import program_audit as PA
+    from kubernetes_tpu_torch.analysis.programs import build_programs
+
+    counts, fake_s = fake
+    t0 = time.perf_counter()
+    specs = build_programs(include_mesh=True, device="cuda",
+                           mesh_devices=[MESH_DEVICE] * 4)
+    if sorted(s.name for s in specs) != sorted(counts):
+        raise AssertionError(f"contract audit: the card's registry "
+                             f"{sorted(s.name for s in specs)} is not the "
+                             f"fake trace's {sorted(counts)}")
+    # one unarmed dispatch each first: a torch op's first use on the card
+    # may synchronize (its module's load), as a library's first load does
+    for spec in specs:
+        spec.run_collect(spec.fn(*spec.args))
+    torch.cuda.synchronize()
+    rows = []
+    for spec in specs:
+        try:
+            trace = PA.measure_program(spec)
+        except RuntimeError as e:
+            raise AssertionError(f"contract audit {spec.name}: the "
+                                 f"dispatch synchronized: {e}") from e
+        found = [f"{f.rule}: {f.message}"
+                 for f in PA.audit_trace(spec, trace) if not f.suppressed]
+        want = counts[spec.name]
+        copies = (spec.host_copies if spec.host_copies is not None
+                  else spec.expected_host_leaves)
+        syncs = sum(1 for rule, phase, _m in trace.events
+                    if rule == "host-sync" and phase == "dispatch")
+        row = {"program": spec.name, "d2h": trace.d2h,
+               "declared_d2h": copies, "fake_d2h": want["d2h"],
+               "host_leaves": trace.host_leaves,
+               "declared_host_leaves": spec.expected_host_leaves,
+               "kernels": trace.kernels, "fake_kernels": want["kernels"],
+               "syncs": syncs, "findings": found,
+               "fake_findings": want["findings"]}
+        emit("contract_audit", **row)
+        if trace.d2h != copies or want["d2h"] != copies \
+                or trace.host_leaves != spec.expected_host_leaves \
+                or want["host_leaves"] != spec.expected_host_leaves:
+            raise AssertionError(f"contract audit {spec.name}: {row}")
+        if trace.kernels != want["kernels"] or syncs or found \
+                or want["findings"]:
+            raise AssertionError(f"contract audit {spec.name}: {row}")
+        rows.append(row)
+    emit("contract_audit_summary", programs=len(rows),
+         seconds=time.perf_counter() - t0, fake_trace_s=fake_s,
+         kernels_launched=sorted({k for r in rows for k in r["kernels"]}))
+    return rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--baseline", metavar="OLD.cu",
@@ -3608,12 +3812,18 @@ def main() -> int:
     # the serial oracle and phase 6's CPU runs take minutes of host time:
     # they run in worker processes while the card works, and the pool's
     # exit terminates them whatever happens
-    with multiprocessing.get_context("spawn").Pool(
-            HOST_WORKERS, initializer=worker_init) as pool:
-        return run(args, host_jobs(pool, S))
+    audit = start_fake_audit()
+    try:
+        with multiprocessing.get_context("spawn").Pool(
+                HOST_WORKERS, initializer=worker_init) as pool:
+            return run(args, host_jobs(pool, S), audit)
+    finally:
+        if audit.poll() is None:
+            audit.kill()
+            audit.communicate()
 
 
-def run(args, jobs) -> int:
+def run(args, jobs, audit) -> int:
     from kubernetes_tpu_torch.api import types as T
     from kubernetes_tpu_torch.harness import scenarios as S
     from kubernetes_tpu_torch.models import replay
@@ -3638,6 +3848,10 @@ def run(args, jobs) -> int:
         assign_kernel as AK,
     )
 
+    from kubernetes_tpu_torch.analysis.compile_guard import CompileSentinel
+
+    global SENTINEL
+    SENTINEL = CompileSentinel()
     kind = torch.cuda.get_device_name(0)
     smi = nvidia_smi_line()
     emit("device", kind=kind, count=torch.cuda.device_count(),
@@ -3750,6 +3964,9 @@ def run(args, jobs) -> int:
     k8, k8_err, mesh_k1, mesh_k1_shapes, k8_launches, k8_shapes = \
         phase_mesh(PK, RK, T, ClusterState, TorchScheduleAlgorithm, S,
                    density_names, density_wall, floor_ms, old_k8)
+    phase_contract_audit(fake_audit_result(audit))
+    emit("contract_audit_windows", windows=GUARDED,
+         events=sum(GUARDED.values()))
 
     # the density path probes J=128 over the 5,000 nodes padded to 8,192;
     # the zoned density path runs one 50,000-pick run in a 65,536 bucket

@@ -174,7 +174,8 @@ def _probe_rows(config: SchedulerConfig, num_zones: int, num_values: int,
             stk_rows["spread_base"] = R._matvec(carry["class_count"],
                                                 pod["spread_match"])
             stk_rows["spread_selfmatch"] = (
-                pod["spread_match"][pod["class_id"]] > 0).to(I64).expand(N)
+                torch.take(pod["spread_match"], pod["class_id"]) > 0
+            ).to(I64).expand(N)
         elif name == NODE_AFFINITY:
             stk_rows["na_counts"] = R.node_affinity_counts(
                 pod["pref_valid"], pod["pref_weight"], pod["pref_ops"],

@@ -123,20 +123,38 @@ class ZReplay:
         not None), probe + pick loop, fold this run's commits.
         -> (carry', chosen i32[K_bucket] permuted-space ids, L', n_done),
         host values after ONE device-to-host copy."""
+        carry, chosen, _counts, L, n_done = self.dispatch(
+            static, carry, prev_pod, prev_counts, pod, num_zones,
+            num_values, J, K_bucket, zone_id_perm, veto_perm, has_selectors,
+            rows, k_real, L0)
+        out = self.collect(chosen, L, n_done)
+        return (carry, out[:K_bucket].astype(np.int32), int(out[K_bucket]),
+                int(out[K_bucket + 1]))
+
+    def dispatch(self, static, carry, prev_pod, prev_counts, pod, num_zones,
+                 num_values, J, K_bucket, zone_id_perm, veto_perm,
+                 has_selectors, rows, k_real, L0):
+        """run's device half, no host sync: -> (carry', chosen
+        i32[K_bucket], counts i64[N] node-order commits (folded), L',
+        n_done), the last four on the device."""
         if prev_pod is not None:
             carry = self.apply_fn(static, carry, prev_pod, prev_counts)
         dev = carry["res"].device
         j, chosen, L, n_done, _bailed = _replay_run(
             self.config, num_zones, num_values, J, K_bucket, static, carry,
             pod, zone_id_perm, veto_perm, has_selectors, rows, k_real,
-            torch.tensor(int(L0), dtype=I64, device=dev),
+            torch.full((), int(L0), dtype=I64, device=dev),
             torch.ones((), dtype=torch.bool, device=dev))
-        carry = self.apply_fn(static, carry, pod,
-                              _node_counts(j, static["name_desc_order"]))
-        out = torch.cat([chosen.to(I64), torch.stack([L, n_done])])
-        out = out.cpu().numpy()
-        return (carry, out[:K_bucket].astype(np.int32), int(out[K_bucket]),
-                int(out[K_bucket + 1]))
+        counts = _node_counts(j, static["name_desc_order"])
+        carry = self.apply_fn(static, carry, pod, counts)
+        return carry, chosen, counts, L, n_done
+
+    @staticmethod
+    def collect(*parts) -> np.ndarray:
+        """The device results of a dispatch -> one int64 host vector, in
+        ONE device-to-host copy."""
+        return torch.cat([p.to(I64).reshape(-1) for p in parts]).cpu() \
+            .numpy()
 
     def run_group(self, static, carry, prev, pods, G, num_zones,
                   num_values, J, K_bucket, zone_id_perm, vetos_perm,
@@ -147,13 +165,28 @@ class ZReplay:
         riding this call: None or (kind, pod(s), counts).
         -> (carry', chosen i32[G, K_bucket] permuted-space ids,
         n_done i64[G], L'), host values after ONE device-to-host copy."""
+        carry, chosen, n_done, L = self.dispatch_group(
+            static, carry, prev, pods, G, num_zones, num_values, J,
+            K_bucket, zone_id_perm, vetos_perm, has_sels, rows_arr,
+            k_reals, L0)
+        out = self.collect(chosen, n_done, L)
+        GK = G * K_bucket
+        return (carry, out[:GK].reshape(G, K_bucket).astype(np.int32),
+                out[GK:GK + G], int(out[GK + G]))
+
+    def dispatch_group(self, static, carry, prev, pods, G, num_zones,
+                       num_values, J, K_bucket, zone_id_perm, vetos_perm,
+                       has_sels, rows_arr, k_reals, L0):
+        """run_group's device half, no host sync: -> (carry', chosen
+        i64[G, K_bucket], n_done i64[G], L'), the last three on the
+        device."""
         if prev is not None:
             kind, ppod, pcounts = prev
             fold = self.apply_fn if kind == "single" else self.apply_group_fn
             carry = fold(static, carry, ppod, pcounts)
         dev = carry["res"].device
         perm = static["name_desc_order"]
-        L = torch.tensor(int(L0), dtype=I64, device=dev)
+        L = torch.full((), int(L0), dtype=I64, device=dev)
         active = torch.ones((), dtype=torch.bool, device=dev)
         chosen_rows, done_rows = [], []
         for g in range(G):
@@ -168,8 +201,5 @@ class ZReplay:
             done_rows.append(torch.where(active, n_done, 0))
             L = L2
             active = active & (bailed == 0)
-        out = torch.cat([torch.stack(chosen_rows).flatten(),
-                         torch.stack(done_rows), L.view(1)]).cpu().numpy()
-        GK = G * K_bucket
-        return (carry, out[:GK].reshape(G, K_bucket).astype(np.int32),
-                out[GK:GK + G], int(out[GK + G]))
+        return (carry, torch.stack(chosen_rows), torch.stack(done_rows),
+                L.view(1))

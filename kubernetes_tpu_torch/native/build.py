@@ -30,6 +30,13 @@ builds it anew.
 - sass_counts(lib, kernel): a kernel's static SASS instructions, in all
   and of a few kinds (shuffles, barriers, loads, stores), from
   `cuobjdump -sass`; None where cuobjdump is not found.
+- load_library(path): ctypes.CDLL of a built kernel library; the kernel
+  wrappers' load() and _lib() take their libraries through it.
+- add_build_listener(fn): fn(kind, name, seconds) is called after every
+  compiler run ("nvcc" or "cc", the source's file name) and every load
+  of a built library ("load", its file name): the port's counterpart of
+  an XLA compile event, which analysis/compile_guard.CompileSentinel
+  counts.
 """
 
 from __future__ import annotations
@@ -44,10 +51,13 @@ import subprocess
 import sys
 import sysconfig
 import tempfile
+import time
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "torch_kernels")
 _WARNED: set[str] = set()
+#: callables fn(kind, name, seconds) told of every build and load
+_LISTENERS: list = []
 
 #: nvcc flags of every CUDA kernel: Hopper's sm_90a, no FMA contraction
 #: (so a*b+c rounds twice, as the oracle does), and ptxas's per-kernel
@@ -70,6 +80,7 @@ def _compile(cmd_head: list, src: str, out: str) -> subprocess.CompletedProcess:
     os.makedirs(BUILD_DIR, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
+    t0 = time.perf_counter()
     try:
         proc = subprocess.run([*cmd_head, "-o", tmp, src],
                               capture_output=True, text=True, timeout=600)
@@ -79,6 +90,29 @@ def _compile(cmd_head: list, src: str, out: str) -> subprocess.CompletedProcess:
     finally:
         if os.path.exists(tmp):
             os.unlink(tmp)
+        _notify(os.path.basename(cmd_head[0]), os.path.basename(src),
+                time.perf_counter() - t0)
+
+
+def add_build_listener(fn) -> None:
+    """Call fn(kind, name, seconds) after every compiler run and every
+    library load from now on."""
+    _LISTENERS.append(fn)
+
+
+def _notify(kind: str, name: str, seconds: float) -> None:
+    for fn in list(_LISTENERS):
+        fn(kind, name, seconds)
+
+
+def load_library(path: str):
+    """ctypes.CDLL(path), told to the build listeners as a "load"."""
+    import ctypes
+
+    t0 = time.perf_counter()
+    lib = ctypes.CDLL(path)
+    _notify("load", os.path.basename(path), time.perf_counter() - t0)
+    return lib
 
 
 def _c_compiler() -> str | None:
@@ -132,6 +166,7 @@ def _ensure_ext(stem: str) -> str | None:
             _warn_once(f"cc-fail-{stem}",
                        f"building {stem} failed:\n{proc.stderr}")
             return None
+    t0 = time.perf_counter()
     try:
         loader = importlib.machinery.ExtensionFileLoader(name, out)
         spec = importlib.util.spec_from_file_location(name, out,
@@ -141,6 +176,7 @@ def _ensure_ext(stem: str) -> str | None:
     except Exception as exc:
         _warn_once(f"load-{stem}", f"loading {out} raised {exc!r}")
         return None
+    _notify("load", os.path.basename(out), time.perf_counter() - t0)
     sys.modules[name] = mod
     setattr(sys.modules["kubernetes_tpu_torch.native"], stem, mod)
     return out

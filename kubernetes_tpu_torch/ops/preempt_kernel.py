@@ -36,6 +36,7 @@ import ctypes
 
 import torch
 
+from kubernetes_tpu_torch.native.build import load_library
 from kubernetes_tpu_torch.ops.preempt import RES_ROWS, victim_score_plain
 
 I32 = torch.int32
@@ -58,7 +59,7 @@ _LIB = None
 
 def load(path: str) -> ctypes.CDLL:
     """Load a built K6 library and declare its C interface."""
-    lib = ctypes.CDLL(path)
+    lib = load_library(path)
     fn = lib.victim_score_launch
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * 5
@@ -101,10 +102,9 @@ def _check(name: str, t: torch.Tensor, dtype, shape, device) -> None:
             f"{t.device}")
 
 
-def _launch(prio, ord_, res, free, req, gang_prio: int, lib=None):
-    """Launch the kernel (of `lib`, a library from load(); this
-    checkout's by default)."""
-    global LAUNCHES
+def _outputs(prio, ord_, res, free, req):
+    """Check one launch's inputs -> its outputs (needed i32[N], cost
+    i64[N], order i32[N, C]), allocated on their device."""
     device = prio.device
     N, C = prio.shape
     if C < 1 or C > MAX_C or C & (C - 1):
@@ -116,9 +116,18 @@ def _launch(prio, ord_, res, free, req, gang_prio: int, lib=None):
     _check("res", res, I64, (N, C, RES_ROWS), device)
     _check("free", free, I64, (N, RES_ROWS), device)
     _check("req", req, I64, (RES_ROWS,), device)
-    needed = torch.empty((N,), dtype=I32, device=device)
-    cost = torch.empty((N,), dtype=I64, device=device)
-    order = torch.empty((N, C), dtype=I32, device=device)
+    return (torch.empty((N,), dtype=I32, device=device),
+            torch.empty((N,), dtype=I64, device=device),
+            torch.empty((N, C), dtype=I32, device=device))
+
+
+def _launch(prio, ord_, res, free, req, gang_prio: int, lib=None):
+    """Launch the kernel (of `lib`, a library from load(); this
+    checkout's by default)."""
+    global LAUNCHES
+    device = prio.device
+    N, C = prio.shape
+    needed, cost, order = _outputs(prio, ord_, res, free, req)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = (lib or _lib()).victim_score_launch(
@@ -143,4 +152,6 @@ def victim_score(prio, ord_, res, free, req, gang_prio: int):
         return victim_score_plain(prio, ord_, res, free, req, gang_prio)
     if device.type != "cuda":
         raise ValueError(f"victim_score: no kernel for device {device}")
+    if prio.shape[0] == 0:  # the launcher launches nothing
+        return _outputs(prio, ord_, res, free, req)
     return _launch(prio, ord_, res, free, req, gang_prio)

@@ -117,7 +117,7 @@ def selector_spread(
     zone_ids = torch.arange(num_zones, device=dev)
     max_zone = torch.where(zone_ids > 0, zcounts, 0).max().clamp(min=0)
 
-    ten = torch.tensor(float(MAX_PRIORITY), dtype=F32, device=dev)
+    ten = torch.full((), float(MAX_PRIORITY), dtype=F32, device=dev)
     ratio = (max_count - counts).to(F32) / max_count.to(F32)
     f = torch.where(max_count > 0, ten * ratio, ten)
     node_zcount = zcounts[zone_idx]
@@ -128,8 +128,8 @@ def selector_spread(
     zone_score = ten * zone_ratio
     # Go evaluates (1.0 - zoneWeighting) as an EXACT untyped-constant
     # expression rounded once to float32 (selector_spreading.go:226)
-    third = torch.tensor(1.0 / 3.0, dtype=F32, device=dev)
-    two_thirds = torch.tensor(2.0 / 3.0, dtype=F32, device=dev)
+    third = torch.full((), 1.0 / 3.0, dtype=F32, device=dev)
+    two_thirds = torch.full((), 2.0 / 3.0, dtype=F32, device=dev)
     node_part = f * third
     zone_part = two_thirds * zone_score
     blended = node_part + zone_part

@@ -36,6 +36,7 @@ from typing import Sequence, Tuple
 
 import torch
 
+from kubernetes_tpu_torch.native.build import load_library
 from kubernetes_tpu_torch.ops import predicates as P
 from kubernetes_tpu_torch.ops import priorities as R
 
@@ -109,7 +110,7 @@ def resource_probe_plain(J: int, alloc, usage, pod, terms, *,
 
 def load(path: str) -> ctypes.CDLL:
     """Load a built probe kernel library and declare its C interface."""
-    lib = ctypes.CDLL(path)
+    lib = load_library(path)
     fn = lib.resource_probe_launch
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * 13
@@ -252,6 +253,8 @@ def resource_probe(J: int, alloc, usage, pod, terms, *,
                                     wants_res=wants_res, bf16=bf16)
     if device.type != "cuda":
         raise ValueError(f"resource_probe: no kernel for device {device}")
+    if J == 0 or alloc[0].shape[0] == 0:  # the launcher launches nothing
+        return _outputs(J, alloc, usage, pod_vector(pod))
     if bf16:
         return _launch_bf16(J, alloc, usage, pod_vector(pod), tuple(terms),
                             wants_res)

@@ -35,5 +35,7 @@ def select_host(scores, fit_mask, last_node_index, name_desc_order):
     # argmax of an integer mask (CUDA argmax takes no bool); exactly one
     # position is set when any node fits
     pick_pos = torch.argmax((ties_by_name & (cum == r + 1)).to(torch.int32))
-    chosen = name_desc_order[pick_pos]
+    # take, not [pick_pos]: indexing by a 0-d device tensor reads it on
+    # the host (a sync per step)
+    chosen = torch.take(name_desc_order, pick_pos)
     return torch.where(any_fit, chosen, -1), any_fit

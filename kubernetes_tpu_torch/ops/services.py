@@ -99,7 +99,8 @@ def service_anti_affinity(
     by_value.index_add_(0, vidx,
                         torch.where(eligible, counts_row, 0).to(torch.int32))
     at_node = by_value[vidx].to(I64)
-    ten = torch.tensor(float(MAX_PRIORITY), dtype=F32, device=by_value.device)
+    ten = torch.full((), float(MAX_PRIORITY), dtype=F32,
+                     device=by_value.device)
     f = torch.where(
         total > 0,
         ten * ((total - at_node).to(F32) / total.to(F32)),

@@ -47,6 +47,7 @@ import ctypes
 
 import torch
 
+from kubernetes_tpu_torch.native.build import load_library
 from kubernetes_tpu_torch.ops import priorities as R
 
 I64 = torch.int64
@@ -180,7 +181,7 @@ def _scores(nodes, weights, j, fit, zc, nz_c, nz_m, selfm, num_zones,
 
 def load(path: str) -> ctypes.CDLL:
     """Load a built K3 library and declare its C interface."""
-    lib = ctypes.CDLL(path)
+    lib = load_library(path)
     fn = lib.zreplay_launch
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * 17
@@ -234,11 +235,9 @@ def _check(name: str, t: torch.Tensor, dtype, shape, device) -> None:
             f"{t.device}")
 
 
-def _c_args(nodes: dict, scalars: torch.Tensor, weights: dict, *, K: int,
-            k_real: int, rows_dyn: int, num_zones: int, has_selectors: bool,
-            lib=None):
-    """Check one launch's inputs and allocate its outputs -> (the C
-    entry's arguments, (chosen, j, state), scratch or None)."""
+def _outputs(nodes: dict, scalars: torch.Tensor, K: int, k_real: int):
+    """Check one launch's inputs -> its outputs (chosen i32[K], j i64[N],
+    state i64[3]), allocated on their device."""
     device = scalars.device
     N = nodes["frontier"].shape[0]
     for name in NODE_INPUTS:
@@ -248,9 +247,19 @@ def _c_args(nodes: dict, scalars: torch.Tensor, weights: dict, *, K: int,
     _check("scalars", scalars, I64, (len(SCALARS),), device)
     if not 0 <= k_real <= K:
         raise ValueError(f"replay_picks: k_real {k_real} outside [0, {K}]")
-    chosen = torch.empty((K,), dtype=torch.int32, device=device)
-    j = torch.empty((N,), dtype=I64, device=device)
-    state = torch.empty((3,), dtype=I64, device=device)
+    return (torch.empty((K,), dtype=torch.int32, device=device),
+            torch.empty((N,), dtype=I64, device=device),
+            torch.empty((3,), dtype=I64, device=device))
+
+
+def _c_args(nodes: dict, scalars: torch.Tensor, weights: dict, *, K: int,
+            k_real: int, rows_dyn: int, num_zones: int, has_selectors: bool,
+            lib=None):
+    """Check one launch's inputs and allocate its outputs -> (the C
+    entry's arguments, (chosen, j, state), scratch or None)."""
+    device = scalars.device
+    N = nodes["frontier"].shape[0]
+    chosen, j, state = _outputs(nodes, scalars, K, k_real)
     nbytes = scratch_bytes(N, num_zones, device, lib)
     scratch = (torch.empty((nbytes,), dtype=torch.uint8, device=device)
                if nbytes else None)

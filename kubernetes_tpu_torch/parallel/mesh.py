@@ -467,14 +467,14 @@ def _spread_sharded(pod_has_selectors, pod_spread_match, class_count,
         have_zones = (zone_seen[s] > 0).any()
         max_zone = torch.where(torch.arange(num_zones, device=dev) > 0,
                                zcs, 0).max().clamp(min=0)
-        ten = torch.tensor(float(R.MAX_PRIORITY), dtype=F32, device=dev)
+        ten = torch.full((), float(R.MAX_PRIORITY), dtype=F32, device=dev)
         f = torch.where(mc > 0,
                         ten * ((mc - counts[s]).to(F32) / mc.to(F32)), ten)
         node_zcount = zcs[zone_idx[s]]
         zone_score = ten * ((max_zone - node_zcount).to(F32)
                             / max_zone.to(F32))
-        third = torch.tensor(1.0 / 3.0, dtype=F32, device=dev)
-        two_thirds = torch.tensor(2.0 / 3.0, dtype=F32, device=dev)
+        third = torch.full((), 1.0 / 3.0, dtype=F32, device=dev)
+        two_thirds = torch.full((), 2.0 / 3.0, dtype=F32, device=dev)
         blended = f * third + two_thirds * zone_score
         f = torch.where(have_zones & (zone_id[s] > 0), blended, f)
         f = torch.where(pod_has_selectors[s], f, ten)
@@ -526,7 +526,8 @@ def _mesh_probe_rows(config, num_zones, num_values, J, n_per_shard,
             stk_rows["spread_base"] = R._matvec(carry["class_count"],
                                                 pod["spread_match"])
             stk_rows["spread_selfmatch"] = (
-                pod["spread_match"][pod["class_id"]] > 0).to(I64).expand(N)
+                torch.take(pod["spread_match"], pod["class_id"]) > 0
+            ).to(I64).expand(N)
         elif name == NODE_AFFINITY:
             stk_rows["na_counts"] = R.node_affinity_counts(
                 pod["pref_valid"], pod["pref_weight"], pod["pref_ops"],
@@ -825,6 +826,15 @@ class MeshBatchScheduler:
         """Scan host pod rows (name -> [P, ...]) through an EXTERNAL carry
         (the mesh wave's fallback flush threads its resident carry
         through here), in place. -> (carries, chosen i32[P] numpy)."""
+        chosen = self._dispatch(statics, carries, pods, n, n_per_shard,
+                                num_zones, num_values, num_pods)
+        return carries, chosen.cpu().numpy().astype(np.int32)
+
+    def _dispatch(self, statics, carries, pods, n, n_per_shard, num_zones,
+                  num_values, num_pods):
+        """_exec's device half: the pod rows uploaded once a distinct
+        device, the scan steps enqueued -> chosen i64[P] on the mesh's
+        first device (no host sync)."""
         layout, buf = pack_arrays(pods)
         rows = _shard_rows(self.mesh, layout,
                            {d: upload(buf, d)
@@ -837,7 +847,7 @@ class MeshBatchScheduler:
             chosen[i] = _mesh_scan_fn(
                 self.config, num_zones, n_per_shard, n, num_values,
                 self.mesh, statics, carries, pod_i)
-        return carries, chosen.cpu().numpy().astype(np.int32)
+        return chosen
 
     def schedule_names(self, snap: ClusterSnapshot, batch: PodBatch):
         names = list(snap.node_names)

@@ -55,6 +55,7 @@ import numpy as np
 import torch
 
 from kubernetes_tpu_torch.models.pack import placed_dtype, unpack
+from kubernetes_tpu_torch.native.build import load_library
 
 I64 = torch.int64
 
@@ -80,7 +81,7 @@ def _lib() -> ctypes.CDLL:
     declared."""
     global _LIB
     if _LIB is None:
-        lib = ctypes.CDLL(build())
+        lib = load_library(build())
         fn = lib.resident_scatter_launch
         fn.restype = ctypes.c_int
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
@@ -298,9 +299,19 @@ def launch_args(layout, buf, names, axes, shard_dests, shard_ids,
                       tuple(mask), tuple(desc), _lanes(row_bytes))
 
 
+def _outputs(buf, table: DestTable) -> tuple:
+    """Check a launch's buffer against its destination table -> its
+    outputs: none, as the kernel writes the resident tensors in place."""
+    if table.device != buf.device:
+        raise ValueError(f"scatter_shipment: the destination table lies "
+                         f"on {table.device}, the shipment on {buf.device}")
+    return ()
+
+
 def _launch(buf, table: DestTable, a: LaunchArgs, n_launch: int) -> None:
     """Launch the kernel once (n_launch shards) on buf's device."""
     global LAUNCHES
+    _outputs(buf, table)
     flat = [v for d in a.desc for v in d]
     arr = (ctypes.c_longlong * max(len(flat), 1))(*flat)
     words = (ctypes.c_ulonglong * len(a.mask))(*a.mask)
@@ -380,9 +391,10 @@ def scatter_shipment(layout, buf: torch.Tensor, names: Sequence[str],
         table = DestTable(device, n_shards, {
             name: {s: dests[i] for s, dests in zip(shard_ids, shard_dests)}
             for i, name in enumerate(names)})
-    _launch(buf, table, launch_args(layout, buf, names, axes, shard_dests,
-                                    shard_ids, n_per_shard, narrowed,
-                                    table), len(shard_ids))
+    a = launch_args(layout, buf, names, axes, shard_dests, shard_ids,
+                    n_per_shard, narrowed, table)
+    if a.M and a.desc:  # else the launcher launches nothing
+        _launch(buf, table, a, len(shard_ids))
 
 
 def scatter_rows(layout, buf: torch.Tensor, names: Sequence[str],

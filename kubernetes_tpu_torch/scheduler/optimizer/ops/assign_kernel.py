@@ -45,6 +45,7 @@ import ctypes
 
 import torch
 
+from kubernetes_tpu_torch.native.build import load_library
 from kubernetes_tpu_torch.scheduler.optimizer.ops.assign import (
     RES_ROWS,
     _auction_assign_fn,
@@ -86,7 +87,7 @@ _EXPORTS = (
 
 def load(path: str) -> ctypes.CDLL:
     """Load a built K7 library and declare its C interface."""
-    lib = ctypes.CDLL(path)
+    lib = load_library(path)
     for name, res, args in _EXPORTS:
         fn = getattr(lib, name)
         fn.restype = res
@@ -150,6 +151,16 @@ def _check_tables(fit, score, req, commit, check, cap):
     return device, P, N
 
 
+def _outputs(fit, score, req, commit, check, cap, prio=None, order=None):
+    """Check one launch's inputs (the auction's prio and order where
+    given) -> its output owner i32[P], allocated on their device."""
+    device, P, N = _check_tables(fit, score, req, commit, check, cap)
+    if prio is not None:
+        _check("prio", prio, I32, (P,), device)
+        _check("order", order, I32, (P,), device)
+    return torch.empty((P,), dtype=I32, device=device)
+
+
 def _count(solver: str, P: int, N: int) -> None:
     global LAUNCHES
     LAUNCHES += 1
@@ -165,11 +176,10 @@ def _launch_auction(fit, score, req, commit, check, cap, prio, order,
     in, and 1 when the launch took the general (claim) path for repeated
     keys (views of its scratch, valid once the launch is done; bids=True
     needs a library that exports where they lie)."""
-    device, P, N = _check_tables(fit, score, req, commit, check, cap)
-    _check("prio", prio, I32, (P,), device)
-    _check("order", order, I32, (P,), device)
+    owner = _outputs(fit, score, req, commit, check, cap, prio, order)
+    device = owner.device
+    P, N = fit.shape
     lib = lib or _lib()
-    owner = torch.empty((P,), dtype=I32, device=device)
     nbytes = int(lib.assign_auction_scratch_bytes(P, N, int(rounds)))
     scratch = torch.empty(((nbytes + 7) // 8,), dtype=I64, device=device)
     with torch.cuda.device(device):
@@ -200,13 +210,14 @@ def rounds_run(bids: torch.Tensor) -> int:
 def _launch_beam(fit, score, req, commit, check, cap):
     """Launch K7b -> owner i32[P]. Raises above the kernel's largest
     P."""
-    device, P, N = _check_tables(fit, score, req, commit, check, cap)
+    owner = _outputs(fit, score, req, commit, check, cap)
+    device = owner.device
+    P, N = fit.shape
     lib = _lib()
     limit = beam_max_slots()
     if P > limit:
         raise ValueError(f"beam_assign: P={P} slots, the kernel takes at "
                          f"most {limit}")
-    owner = torch.empty((P,), dtype=I32, device=device)
     nbytes = int(lib.assign_beam_scratch_bytes(P, N))
     scratch = torch.empty(((nbytes + 7) // 8,), dtype=I64, device=device)
     with torch.cuda.device(device):

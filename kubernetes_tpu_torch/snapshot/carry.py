@@ -39,15 +39,25 @@ def batch_from_arrays(fields: Dict[str, object]) -> PodBatch:
 
 
 def place(arr, device) -> torch.Tensor:
-    """One host array -> a fresh tensor on `device` (ints as int64)."""
-    a = np.asarray(arr)
+    """One host array -> a fresh tensor on `device` (ints as int64). On
+    CUDA the copy goes through pinned memory and the host does not wait
+    for it (a copy from pageable memory would wait for the card's queued
+    work); it is ordered before later work on the current stream."""
+    # a host array by contract: this is the upload, not a read of device
+    # data (the fold's host counts reach here, wave._counts)
+    a = np.asarray(arr)  # lint: allow[host-sync]
     if a.dtype.kind in "iu":
         a = a.astype(np.int64)
     elif a.dtype.kind in "bf":
         a = a.copy()
     else:
         raise TypeError(f"cannot place an array of dtype {a.dtype}")
-    return torch.from_numpy(a).to(device)
+    host = torch.from_numpy(a)
+    if torch.device(device).type != "cuda":
+        return host.to(device)
+    pinned = torch.empty(host.shape, dtype=host.dtype, pin_memory=True)
+    pinned.copy_(host)
+    return pinned.to(device, non_blocking=True)
 
 
 def to_device(obj, device, fields=None) -> Dict[str, torch.Tensor]:

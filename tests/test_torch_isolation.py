@@ -61,6 +61,13 @@ COPIES = (
     "scheduler/optimizer/__init__.py", "scheduler/optimizer/ops/__init__.py",
     "scheduler/optimizer/controller/__init__.py",
     "scheduler/optimizer/controller/defrag.py", "controller/framework.py",
+    # the model checker of the consensus store, which the static passes
+    # run, and the linearizability checker it uses
+    "storage/quorum/linearize.py", "analysis/sim/__init__.py",
+    "analysis/sim/clock.py", "analysis/sim/disk.py", "analysis/sim/net.py",
+    "analysis/sim/schedule.py", "analysis/sim/invariants.py",
+    "analysis/sim/explore.py", "analysis/sim/harness.py",
+    "analysis/sim/corpus.py",
 )
 #: functions the port's own modules keep verbatim from their counterparts
 FUNCTION_COPIES = {
@@ -119,6 +126,14 @@ FUNCTION_COPIES = {
     "hyperkube.py": ("_client", "_client_from", "_wait_forever",
                      "run_apiserver"),
     "analysis/__init__.py": ("Finding", "render_report"),
+    "analysis/programs.py": ("_scenario", "_assign_args"),
+    "analysis/lint.py": (
+        "_dotted", "_Module", "_build_modules", "_resolve_ref",
+        "_has_thread_join", "_check_module_wide", "_DEADLINE_NAME_RE",
+        "_wall_clock_in_scope", "_is_wall_time_call", "_check_wall_clock",
+        "_self_field", "_write_fields", "_GuardSets",
+        "_check_class_concurrency", "_check_concurrency"),
+    "analysis/__main__.py": ("_load_race_report",),
     "trace/profile.py": ("PHASES", "_ExclusiveAccountant", "_ACCOUNTANT",
                          "_PhaseTimer", "_NullTimer", "_NULL", "_HIST",
                          "phase_timer", "phase_totals", "exclusive_totals",
@@ -164,6 +179,12 @@ DEVIATIONS = {
     ("harness/perf.py", "schedule_pods_separate"):
         "KUBERNETES_TPU_WARM_SCAN",
     ("hyperkube.py", "run_scheduler"): "--device",
+    ("analysis/programs.py", "<module>"): "sharding becomes placement",
+    ("analysis/program_audit.py", "<module>"): "there is no jaxpr",
+    ("analysis/lint.py", "<module>"): "program-scope family",
+    ("analysis/compile_guard.py", "<module>"): "native/build.py",
+    ("analysis/__main__.py", "<module>"): "--programs-only",
+    ("analysis/__init__.py", "run_static_passes"): "include_programs",
 }
 #: the JAX counterpart of a deviation whose file or name differs there
 COUNTERPARTS = {
@@ -171,6 +192,8 @@ COUNTERPARTS = {
         ("scheduler/tpu_algorithm.py", "TPUScheduleAlgorithm._warm_one"),
     ("scheduler/algorithm.py", "TorchScheduleAlgorithm._warmup_mesh"):
         ("scheduler/tpu_algorithm.py", "TPUScheduleAlgorithm._warmup_mesh"),
+    ("analysis/program_audit.py", "<module>"):
+        ("analysis/jaxpr_audit.py", "<module>"),
 }
 
 
@@ -231,6 +254,11 @@ def test_import_leaves_jax_unloaded():
         "import kubernetes_tpu_torch.parallel.resident\n"
         "import kubernetes_tpu_torch.parallel.resident_kernel\n"
         "import kubernetes_tpu_torch.parallel.shard\n"
+        "import kubernetes_tpu_torch.analysis.program_audit\n"
+        "import kubernetes_tpu_torch.analysis.lint\n"
+        "import kubernetes_tpu_torch.analysis.compile_guard\n"
+        "import kubernetes_tpu_torch.analysis.__main__\n"
+        "import kubernetes_tpu_torch.analysis.sim.corpus\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'kubernetes_tpu')]\n"
         "assert not bad, bad\n"

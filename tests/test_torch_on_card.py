@@ -15,8 +15,9 @@ joint-assignment kernel K7 (auction and beam) against its plain
 version, and the optimizing profile on the pack configs against the
 same calls on the CPU; the resident row scatter K8 against its plain
 version, and the mesh drivers (four shards on the card) against the
-single-device driver, a mesh on the CPU and the port's oracle copy.
-Each test skips where there is no CUDA device.
+single-device driver, a mesh on the CPU and the port's oracle copy; and
+the contract audit's program registry run on the card (chip_smoke.py
+phase 15 (a)). Each test skips where there is no CUDA device.
 
 This module imports only torch and the port, so it also runs on a
 machine without JAX:
@@ -268,6 +269,41 @@ def test_extender_verbs_on_card_match_cpu(cuda_device):
         assert got[0] == 200
         assert json.dumps(got, sort_keys=True) == json.dumps(
             cpu.handle(verb, json.loads(text)), sort_keys=True)
+
+
+@pytest.mark.parametrize("kernel,J,N", [("probe", 0, 1024),
+                                         ("probe", 8, 0), ("victim", 0, 0)])
+def test_empty_shape_counts_no_launch_on_card(kernel, J, N, cuda_device):
+    """Where a launcher launches nothing (K1 at J = 0 or N = 0, K6 at
+    N = 0), the wrapper counts no launch; its outputs equal the plain
+    version's."""
+    from kubernetes_tpu_torch.ops.preempt import victim_score_plain
+
+    if kernel == "probe":
+        alloc, usage, pod = S.probe_case(1024, 2)
+
+        def put(a):
+            return torch.tensor(a, dtype=torch.int64, device=cuda_device)[:N]
+
+        alloc, usage = tuple(map(put, alloc)), tuple(map(put, usage))
+        pod = {k: torch.tensor(v, dtype=torch.int64, device=cuda_device)
+               for k, v in pod.items()}
+        launches = PK.LAUNCHES
+        got = PK.resource_probe(J, alloc, usage, pod, TERMS)
+        assert PK.LAUNCHES == launches
+        want = PK.resource_probe_plain(J, alloc, usage, pod, TERMS)
+    else:
+        label, n, C, kind = S.VICTIM_CASES[0]
+        c = S.victim_case(n, C, 4, kind)
+        args = [torch.as_tensor(c[k]).to(cuda_device)
+                for k in ("prio", "ord", "res", "free", "req")]
+        args = [a[:N] for a in args[:4]] + args[4:]
+        launches = VK.LAUNCHES
+        got = VK.victim_score(*args, c["gang_prio"])
+        assert VK.LAUNCHES == launches
+        want = victim_score_plain(*args, c["gang_prio"])
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b)
 
 
 @pytest.mark.parametrize("case", S.VICTIM_CASES,
@@ -816,3 +852,18 @@ def test_mesh_scan_on_card_matches_single_device(cuda_device):
         snap, batch)
     assert got == BatchScheduler(device=cuda_device).schedule_names(
         snap, batch)
+
+
+def test_contract_audit_on_card(cuda_device):
+    """chip_smoke.py phase 15 (a) alone: every registered program run on
+    the card with its dispatch under the sync debug mode "error", its
+    device-to-host copies equal to the declaration and to the fake
+    trace's, its kernels launched as often as the fake trace reached
+    them."""
+    import chip_smoke
+
+    rows = chip_smoke.phase_contract_audit(
+        chip_smoke.fake_audit_result(chip_smoke.start_fake_audit()))
+    assert len(rows) == 22
+    assert all(r["d2h"] == r["declared_d2h"] and not r["syncs"]
+               for r in rows)
