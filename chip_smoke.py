@@ -260,6 +260,20 @@ non-zero:
      measured and traced calls) and 14c (the steady waves and the churn
      wave): any kernel-library build or load inside one fails the run;
      one line with each window's events (0);
+  16. the soaks on the card: (a) harness/soak.run_wire_soak (the JAX
+     package's wire soak, copied, the daemon on the card) at bench.py's
+     defaults, 1,000 hollow nodes, 300 pods/s of Poisson arrivals with
+     deletion churn for 60 s: its own gates (p99 created->bound within
+     the 5 s SLO, no kernel build or load in the measured window, RSS
+     flat within 10 %, no dropped watch event), pods bound a second over
+     the window, K1's launches by (J, N), K3's, the device memory
+     allocated and reserved at the window's start and end, and the
+     device idle share over the whole call; (b) harness/mesh_soak.
+     run_mesh_soak at 4 shards on the card for 45 s: its gates (no build
+     or load after the warm-up, RSS flat within 10 %, no table bytes on
+     a quiet wave), K1's launches at the shard width, K8's (its churn
+     waves re-place the tables whole: none; one launch a scatter if
+     any), the idle share; any breached gate fails the run;
   11. the kernels line, with the launch counts of each path it drove
      (K1's bf16 mode as its own entry, resource_probe_bf16: phase 12's
      bf16 arms are its path; K7's auction and beam as assign_auction and
@@ -267,12 +281,15 @@ non-zero:
      resident_scatter, the churn wave its path); then nvidia-smi's line,
      then the result line {"ok": true, "device": {...}}.
 
-Phase 15 runs after phase 14, before the kernels line.
+Phases 15 and 16 run after phase 14, before the kernels line.
 
 Every idle share comes from a profiler trace kept only when its K1, K3,
 K6 and K7 events equal the launches the wrappers counted during the
 traced call (device_busy_ms, and traced_call in phase 13); the line
-prints both.
+prints both. Phase 16 runs in a spawned process of its own and traces
+each soak once, whole: a trace that falls short prints its events and
+no idle share. Every trace starts with a primer kernel (cuda_trace)
+and is read from its raw device events (trace_busy).
 
 Each path's launch counts are set to 0 just before it and read just
 after; a path that does not launch each of its kernels fails. The
@@ -460,13 +477,16 @@ PRIMER_KERNEL, PRIMER_CYCLES = "spin_kernel", 1000
 @contextlib.contextmanager
 def cuda_trace():
     """A profiler trace of the card's activity -> the profile; the first
-    thing in it is a short primer kernel. On the H100, once other
-    processes had been started, a trace would lose its first device
-    event, at times all of them; traces that start with the primer kept
-    every event (python -m kubernetes_tpu_torch.harness.trace_probe).
-    Here the first trace of a K6 or K7 case still came back empty at
-    times, so the callers take a trace again when it falls short. Sums
-    over a trace leave the primer out (PRIMER_KERNEL)."""
+    thing in it is a short primer kernel. On the H100, once processes had
+    been started or the host loaded, a trace would lose its first device
+    event, at times all of them: python -m kubernetes_tpu_torch.harness.
+    trace_probe kept 48 of 96 such traces whole, 95 of 96 with the
+    primer first, 95 of 96 behind a profiler warm-up step (the activity
+    switched on a step before the recorded one) and 50 of 96 with a
+    synchronize and a host wait before the close. The first trace of
+    each K6 and K7 case in phases 3c and 3d still comes back short, so
+    the callers take a trace again when it falls short. Sums over a
+    trace leave the primer out (PRIMER_KERNEL)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -552,17 +572,23 @@ def device_busy_ms(fn, kernels, tries=5):
 def trace_busy(prof, kernels) -> tuple:
     """A finished profiler trace -> (summed device time of every kernel
     and copy in it, in ms, or None when it shows none; {kernel: the
-    events it recorded of each of `kernels`})."""
+    events it recorded of each of `kernels`}). It reads the trace's raw
+    device events (the ones prof.key_averages() groups, hidden events
+    left out as there): building the profiler's event list first took
+    108 s for a 45 s trace of the mesh soak."""
     events = dict.fromkeys(kernels, 0)
-    busy_us = 0.0
-    for ev in prof.key_averages():
-        if ev.device_type == torch.autograd.DeviceType.CUDA \
-                and PRIMER_KERNEL not in ev.key:
-            busy_us += ev.self_device_time_total
+    busy_ns = 0
+    for ev in prof.profiler.kineto_results.events():
+        if ev.device_type() != torch.autograd.DeviceType.CUDA \
+                or getattr(ev, "is_hidden_event", lambda: False)():
+            continue
+        name = ev.name()
+        if PRIMER_KERNEL not in name:
+            busy_ns += ev.duration_ns()
         for k in kernels:
-            if k in ev.key:
-                events[k] += ev.count
-    return (busy_us / 1e3 if busy_us else None), events
+            if k in name:
+                events[k] += 1
+    return (busy_ns / 1e6 if busy_ns else None), events
 
 
 def launch_shapes(kernels) -> dict:
@@ -3677,6 +3703,132 @@ def k7_entry(solver, times, err, ptxas, paths) -> dict:
     }
 
 
+# -- phase 16: the soaks on the card -----------------------------------------
+
+#: bench.py --wire-soak's defaults and its 60 s CI protocol
+WIRE_SOAK = dict(seconds=60, num_nodes=1000, rate=300.0, slo=5.0)
+#: the mesh churn soak: seconds, shards (every shard on the one card)
+MESH_SOAK = (45, 4)
+
+
+def traced_once(fn, kernels):
+    """One profiler trace over a whole call of fn, opened before it and
+    read after it -> (its result, the idle fields). Where a trace was
+    opened and read inside the wire soak's window, the soak missed its
+    p99 gate (9.97 s; in another run no pod bound in the window); traced
+    whole, it met it (1.27 s and 0.77 s; NVIDIA H100 80GB HBM3,
+    700.00 W). A soak is not run twice: when the trace's kernel events
+    differ from the launches the wrappers counted during the call, the
+    fields carry the trace's entry and no idle share."""
+    before = {k: m.LAUNCHES for k, m in kernels.items()}
+    shapes_before = launch_shapes(kernels)
+    with cuda_trace() as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launched = {k: m.LAUNCHES - before[k] for k, m in kernels.items()}
+    busy_ms, events = trace_busy(prof, kernels)
+    seen = [trace_entry(events, launched, kernels, shapes_before)]
+    return out, idle_fields(busy_ms if events == launched else None, wall,
+                            launched, seen)
+
+
+def phase_wire_soak(PK, ZK):
+    """16a: the wire soak on the card. -> (K1 launches, shapes, K3
+    launches)."""
+    from kubernetes_tpu_torch.harness import soak
+
+    # the soak samples RSS once a second over its measured window, the
+    # first sample at its start: the device memory rides along
+    memory, rss_mb = [], soak.rss_mb
+
+    def sampled():
+        memory.append((torch.cuda.memory_allocated(),
+                       torch.cuda.memory_reserved()))
+        return rss_mb()
+
+    reset(PK, ZK)
+    soak.rss_mb = sampled
+    try:
+        rec, idle = traced_once(lambda: soak.run_wire_soak(soak.SoakConfig(
+            **WIRE_SOAK, device="cuda")), counted_kernels(PK, ZK))
+    finally:
+        soak.rss_mb = rss_mb
+    k1, k1_shapes, k3 = PK.LAUNCHES, shapes(PK.LAUNCHES_BY_SHAPE), \
+        ZK.LAUNCHES
+    emit("wire_soak", record=rec,
+         bound_pods_per_s=rec["steady_bound_pods_per_sec"],
+         k1_launches=k1, k1_launches_by_shape=k1_shapes, k3_launches=k3,
+         k3_launches_by_shape=k3_shapes_of(ZK),
+         device_memory={
+             "allocated_start": memory[0][0] if memory else None,
+             "reserved_start": memory[0][1] if memory else None,
+             "allocated_end": memory[-1][0] if memory else None,
+             "reserved_end": memory[-1][1] if memory else None,
+             "samples": len(memory)}, **idle)
+    if not rec["ok"]:
+        raise AssertionError("wire soak: gates breached: " + ", ".join(
+            sorted(k for k, v in rec["gates"].items() if not v)))
+    if k1 <= 0:
+        raise AssertionError("wire soak: the daemon never launched K1")
+    return k1, k1_shapes, k3
+
+
+def phase_mesh_soak(PK, RK):
+    """16b: the mesh churn soak on the card. -> (K1 launches, shapes, K8
+    launches, shapes)."""
+    from kubernetes_tpu_torch.harness import mesh_soak
+
+    seconds, k = MESH_SOAK
+    kernels = counted_kernels(PK)
+    kernels["resident_scatter_kernel"] = RK
+    reset(PK, RK)
+    rec, idle = traced_once(lambda: mesh_soak.run_mesh_soak(
+        seconds, k, device="cuda"), kernels)
+    k1, k1_shapes = PK.LAUNCHES, shapes(PK.LAUNCHES_BY_SHAPE)
+    k8, k8_shapes = RK.LAUNCHES, [
+        {"M": M, "n_per_shard": n, "fields": f, "shards": sh,
+         "launches": c}
+        for (M, n, f, sh), c in sorted(RK.LAUNCHES_BY_SHAPE.items())]
+    emit("mesh_soak", record=rec, shards=k,
+         devices=mesh_soak.mesh_devices("cuda", k), k1_launches=k1,
+         k1_launches_by_shape=k1_shapes, k8_launches=k8,
+         k8_launches_by_shape=k8_shapes, **idle)
+    if not rec["ok"]:
+        raise AssertionError("mesh soak: gates breached: "
+                             + mesh_soak.breach(rec))
+    widths = {N for (_J, N, _m) in PK.LAUNCHES_BY_SHAPE}
+    if k1 <= 0 or widths != {1024 // k}:
+        raise AssertionError(f"mesh soak: K1 {k1} launches at widths "
+                             f"{widths}")
+    # one card: one K8 launch a scatter
+    if k8 != rec["resident_stats"]["scatters"]:
+        raise AssertionError(f"mesh soak: K8 {k8} launches for "
+                             f"{rec['resident_stats']['scatters']} "
+                             f"scatters")
+    return k1, k1_shapes, k8, k8_shapes
+
+
+def phase_soaks(t0: float) -> tuple:
+    """Phase 16 in a fresh interpreter (a spawned process, as a
+    deployment runs its scheduler, so that the soaks' RSS gates read a
+    process that holds no earlier phase's objects: this one's RSS is
+    ~7.6 GB by then): the wire soak, then the mesh soak, each with the
+    launch counts set to 0 before it and read after it. -> (the wire
+    soak's K1 launches, shapes, K3 launches; the mesh soak's K1
+    launches, shapes, K8 launches, shapes). t0: the script's T0, so that
+    the phase lines' elapsed seconds run on (perf_counter's clock is the
+    host's monotonic clock, one for every process)."""
+    global T0
+    T0 = t0
+    from kubernetes_tpu_torch.ops import probe_kernel as PK
+    from kubernetes_tpu_torch.ops import zreplay_kernel as ZK
+    from kubernetes_tpu_torch.parallel import resident_kernel as RK
+
+    return phase_wire_soak(PK, ZK), phase_mesh_soak(PK, RK)
+
+
 # -- phase 15: the contract audit --------------------------------------------
 
 
@@ -3967,6 +4119,10 @@ def run(args, jobs, audit) -> int:
     phase_contract_audit(fake_audit_result(audit))
     emit("contract_audit_windows", windows=GUARDED,
          events=sum(GUARDED.values()))
+    with multiprocessing.get_context("spawn").Pool(1) as soak_pool:
+        (soak_k1, soak_k1_shapes, soak_k3), (
+            mesh_soak_k1, mesh_soak_k1_shapes, mesh_soak_k8,
+            mesh_soak_k8_shapes) = soak_pool.apply(phase_soaks, (T0,))
 
     # the density path probes J=128 over the 5,000 nodes padded to 8,192;
     # the zoned density path runs one 50,000-pick run in a 65,536 bucket
@@ -3992,7 +4148,8 @@ def run(args, jobs, audit) -> int:
                              "wire_separate": separate_k1,
                              **{f"optimizing_{k}": v[0]
                                 for k, v in opt_paths.items()},
-                             **mesh_k1},
+                             **mesh_k1, "wire_soak": soak_k1,
+                             "mesh_soak": mesh_soak_k1},
         "launches_by_shape": {"density": density_shapes,
                               "zoned_density": z_k1_shapes,
                               "many_templates": tpl_k1_shapes,
@@ -4006,7 +4163,9 @@ def run(args, jobs, audit) -> int:
                               "wire_separate": separate_k1_shapes,
                               **{f"optimizing_{k}": v[1]
                                  for k, v in opt_paths.items()},
-                              **mesh_k1_shapes},
+                              **mesh_k1_shapes,
+                              "wire_soak": soak_k1_shapes,
+                              "mesh_soak": mesh_soak_k1_shapes},
         "max_abs_err": max_err,
         "matches_plain": True,
         "ms": k1["ms"],
@@ -4045,7 +4204,8 @@ def run(args, jobs, audit) -> int:
         "source": "kubernetes_tpu_torch/csrc/zreplay_kernel.cu",
         "replaces": "kubernetes_tpu/models/zreplay.py:59",
         "launches": z_k3,
-        "launches_by_path": {"zoned_density": z_k3, "mixed": mixed_k3},
+        "launches_by_path": {"zoned_density": z_k3, "mixed": mixed_k3,
+                             "wire_soak": soak_k3},
         "launches_by_shape": {"zoned_density": z_k3_shapes,
                               "mixed": mixed_k3_shapes},
         "max_abs_err": k3_err,
@@ -4096,8 +4256,10 @@ def run(args, jobs, audit) -> int:
         "source": "kubernetes_tpu_torch/csrc/resident_scatter.cu",
         "replaces": "kubernetes_tpu/parallel/resident.py:167",
         "launches": k8_launches,
-        "launches_by_path": {"mesh_churn": k8_launches},
-        "launches_by_shape": {"mesh_churn": k8_shapes},
+        "launches_by_path": {"mesh_churn": k8_launches,
+                             "mesh_soak": mesh_soak_k8},
+        "launches_by_shape": {"mesh_churn": k8_shapes,
+                              "mesh_soak": mesh_soak_k8_shapes},
         "max_abs_err": k8_err,
         "matches_plain": True,
         "shape": {k: k8[k] for k in ("shards", "n_per_shard", "M", "rows",

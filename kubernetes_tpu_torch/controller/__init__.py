@@ -1,16 +1,13 @@
 """Reconciling controllers (pkg/controller analogue).
 
-PyTorch counterpart of kubernetes_tpu/controller/__init__.py. Only the
-shared controller machinery (controller/framework.py, a copy) is
-ported so far: the defragmentation controller of the optimizing profile
-(scheduler/optimizer/controller/defrag.py) imports it.
+Every loop follows the reference idiom (pkg/controller/replication/
+replication_controller.go and friends): shared informers feed a
+rate-limited workqueue of object keys; workers pop keys, read the world
+from informer stores, and converge actual -> desired via API writes;
+failures re-queue with backoff; "expectations" absorb informer lag so a
+burst of creates/deletes is not repeated while watches catch up.
 
-Deviation from kubernetes_tpu/controller/__init__.py <module>, which
-also exports ControllerManager: its controller/manager.py pulls in the
-whole controller tree (the replication, node, endpoints, namespace and
-PodGroup status controllers and the rest), which comes with ROADMAP.md
-queue 1 item 4, the host-only subsystems; until then this package
-exports framework's names alone.
+Copy of kubernetes_tpu/controller/__init__.py: only the import package differs.
 """
 
 from kubernetes_tpu_torch.controller.framework import (
@@ -20,9 +17,11 @@ from kubernetes_tpu_torch.controller.framework import (
     active_pods,
     filter_active_pods,
 )
+from kubernetes_tpu_torch.controller.manager import ControllerManager
 
 __all__ = [
     "ControllerExpectations",
+    "ControllerManager",
     "PodControl",
     "SharedInformerFactory",
     "active_pods",

@@ -20,6 +20,8 @@ builds it anew.
   _kquantity and ._ktlv. A library's name carries a hash of its source
   and of the interpreter. None when they cannot be built or loaded:
   their callers run the pure-Python codecs, as in the JAX package.
+- ensure_all(): the three host builds above, as the JAX package's
+  ensure_all (the wire soak calls it before its sentinel arms).
 - build_cuda(stem): `nvcc` of csrc/<stem>.cu for sm_90a into a shared
   library with a plain C interface. Raises when nvcc is missing or the
   build fails: a CUDA kernel has no fallback. build_cuda_file(src, name)
@@ -188,6 +190,12 @@ def ensure_kquantity() -> str | None:
 
 def ensure_ktlv() -> str | None:
     return _ensure_ext("_ktlv")
+
+
+def ensure_all() -> None:
+    ensure_replay()
+    ensure_kquantity()
+    ensure_ktlv()
 
 
 def _nvcc_path() -> str:

@@ -68,6 +68,29 @@ COPIES = (
     "analysis/sim/schedule.py", "analysis/sim/invariants.py",
     "analysis/sim/explore.py", "analysis/sim/harness.py",
     "analysis/sim/corpus.py",
+    # the host-only subsystems and the wire soak: waits, service
+    # accounts and the webhook, the proxy, the cloud providers, volumes,
+    # the kubelet, the controllers, kubemark and the soak's harness
+    # (harness/procs.py and harness/soak.py with the DEVIATIONS below)
+    "utils/wait.py", "auth/serviceaccount.py", "auth/webhook.py",
+    "proxy/__init__.py", "proxy/proxier.py", "proxy/userspace.py",
+    "cloudprovider/__init__.py", "cloudprovider/cloud.py",
+    "cloudprovider/local.py", "cloudprovider/multizone.py",
+    "volume/__init__.py", "volume/attachers.py", "volume/plugins.py",
+    "kubelet/__init__.py", "kubelet/eviction.py", "kubelet/images.py",
+    "kubelet/kubelet.py", "kubelet/pleg.py", "kubelet/prober.py",
+    "kubelet/process_runtime.py", "kubelet/runtime.py",
+    "kubelet/server.py", "kubelet/status.py", "kubelet/volumes.py",
+    "controller/__init__.py", "controller/attach_detach.py",
+    "controller/autoscale.py", "controller/cloud.py",
+    "controller/daemonset.py", "controller/deployment.py",
+    "controller/endpoints.py", "controller/gc.py", "controller/job.py",
+    "controller/manager.py", "controller/node_lifecycle.py",
+    "controller/petset.py", "controller/podgroup.py",
+    "controller/pv_binder.py", "controller/replication.py",
+    "controller/serviceaccount.py",
+    "kubemark/__init__.py", "kubemark/fleet.py", "kubemark/hollow.py",
+    "harness/nemesis.py", "harness/procs.py", "harness/soak.py",
 )
 #: functions the port's own modules keep verbatim from their counterparts
 FUNCTION_COPIES = {
@@ -148,13 +171,16 @@ FUNCTION_COPIES = {
 #: raises on a missing card or a failed kernel build; tests/
 #: test_torch_wire.py the daemon against the JAX package's). A name "Class.
 #: method" is a method of a top-level class; "<module>" is the module
-#: itself, its docstring saying what it leaves out (controller/__init__.py
-#: exports framework's names alone until the host-only subsystems;
-#: parallel/mesh.py and parallel/resident.py donate nothing and compile
+#: itself, its docstring saying what it leaves out (parallel/mesh.py and parallel/resident.py donate nothing and compile
 #: no programs; tests/test_torch_mesh.py and test_torch_resident.py hold
-#: them to the JAX package's).
+#: them to the JAX package's). A deviation inside a file of COPIES is a
+#: top-level definition; the rest of that file is held verbatim
+#: (harness/soak.py and harness/procs.py: the daemon's device, tests/
+#: test_torch_soak.py runs the soak on the CPU).
 DEVIATIONS = {
-    ("controller/__init__.py", "<module>"): "queue 1 item 4",
+    ("harness/soak.py", "SoakConfig"): "device",
+    ("harness/soak.py", "run_wire_soak"): "device=cfg.device",
+    ("harness/procs.py", "SchedulerProc"): "--device",
     ("parallel/mesh.py", "<module>"): "runtime_donation",
     ("parallel/resident.py", "<module>"): "KUBERNETES_TPU_MESH_DONATE",
     ("parallel/resident.py", "ResidentClusterState"): "in place",
@@ -259,6 +285,20 @@ def test_import_leaves_jax_unloaded():
         "import kubernetes_tpu_torch.analysis.compile_guard\n"
         "import kubernetes_tpu_torch.analysis.__main__\n"
         "import kubernetes_tpu_torch.analysis.sim.corpus\n"
+        "import kubernetes_tpu_torch.harness.soak\n"
+        "import kubernetes_tpu_torch.harness.procs\n"
+        "import kubernetes_tpu_torch.harness.nemesis\n"
+        "import kubernetes_tpu_torch.harness.mesh_soak\n"
+        "import kubernetes_tpu_torch.kubemark.fleet\n"
+        "import kubernetes_tpu_torch.kubelet.server\n"
+        "import kubernetes_tpu_torch.kubelet.process_runtime\n"
+        "import kubernetes_tpu_torch.controller.manager\n"
+        "import kubernetes_tpu_torch.cloudprovider.local\n"
+        "import kubernetes_tpu_torch.proxy.userspace\n"
+        "import kubernetes_tpu_torch.volume.attachers\n"
+        "import kubernetes_tpu_torch.auth.webhook\n"
+        "import kubernetes_tpu_torch.auth.serviceaccount\n"
+        "import kubernetes_tpu_torch.utils.wait\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'kubernetes_tpu')]\n"
         "assert not bad, bad\n"
@@ -367,9 +407,35 @@ def _renamed(text: str) -> str:
         "from kubernetes_tpu_torch import", "from kubernetes_tpu import")
 
 
+def _deviations_restored(rel: str, text: str) -> str:
+    """A normalized copy with each of its recorded top-level deviations
+    put back to the JAX package's definition."""
+    for drel, name in DEVIATIONS:
+        if drel == rel:
+            port = _renamed(_top_level_source(PORT / rel, name))
+            assert port in text, f"{rel}: {name} not found"
+            text = text.replace(port, _top_level_source(JAX_PKG / rel, name))
+    return text
+
+
 @pytest.mark.parametrize("rel", [c for c in COPIES if c != "snapshot/pad.py"])
 def test_host_copy_has_not_drifted(rel):
-    assert _normalized_copy(rel) == (JAX_PKG / rel).read_text()
+    assert _deviations_restored(rel, _normalized_copy(rel)) == (
+        JAX_PKG / rel).read_text()
+
+
+def test_copied_process_harness_spawns_the_ports_hyperkube():
+    """Every child process the copied harness starts runs the port's
+    hyperkube, and the scheduler process passes the device it is given."""
+    for rel in ("harness/procs.py", "harness/soak.py",
+                "kubemark/fleet.py"):
+        text = (PORT / rel).read_text()
+        assert '"-m", "kubernetes_tpu.' not in text, rel
+    text = (PORT / "harness/procs.py").read_text()
+    assert text.count('"-m", "kubernetes_tpu_torch.hyperkube"') == 2
+    src = _top_level_source(PORT / "harness/procs.py", "SchedulerProc")
+    assert '"--device", device' in src and "JAX_" not in src.split(
+        '"""')[2]
 
 
 def _top_level_source(path: pathlib.Path, name: str) -> str:

@@ -17,7 +17,8 @@ same calls on the CPU; the resident row scatter K8 against its plain
 version, and the mesh drivers (four shards on the card) against the
 single-device driver, a mesh on the CPU and the port's oracle copy; and
 the contract audit's program registry run on the card (chip_smoke.py
-phase 15 (a)). Each test skips where there is no CUDA device.
+phase 15 (a)); and the mesh churn soak on the card against the same soak
+on the CPU. Each test skips where there is no CUDA device.
 
 This module imports only torch and the port, so it also runs on a
 machine without JAX:
@@ -867,3 +868,28 @@ def test_contract_audit_on_card(cuda_device):
     assert len(rows) == 22
     assert all(r["d2h"] == r["declared_d2h"] and not r["syncs"]
                for r in rows)
+
+
+def test_mesh_soak_on_card_matches_cpu(cuda_device):
+    """harness/mesh_soak at 4 shards on the card for 6 churn waves binds
+    every wave's pods where the same soak on the CPU binds them, with
+    K1 launched on every shard of every wave, no build or load after the
+    warm-up and no table bytes on a quiet wave."""
+    from kubernetes_tpu_torch.harness import mesh_soak
+
+    def run(device):
+        waves = []
+        rec = mesh_soak.run_mesh_soak(
+            shards=4, device=device, waves=6,
+            on_wave=lambda pods, hosts, ev: waves.append(list(hosts)))
+        return rec, waves
+
+    PK.LAUNCHES = 0
+    rec, card = run("cuda")
+    launches = PK.LAUNCHES
+    cpu_rec, cpu = run("cpu")
+    assert card == cpu
+    assert launches == 4 * 8
+    assert rec["steady_state_compiles"] == 0
+    assert rec["quiet_wave_table_bytes_max"] == 0
+    assert rec["resident_stats"] == cpu_rec["resident_stats"]

@@ -11,11 +11,12 @@ aside), the optimizer's stats (slots, placed, fallbacks) and the final
 lastNodeIndex; then the reference test's own checks. The defrag tests
 hold the port's plans to JAX propose_migrations on the same state.
 
-Left to later work, as ROADMAP.md queue 1 says:
-  * test_assign_programs_registered (:440) waits for the port's contract
-    audit (item 3): the port has no program registry yet;
-  * TestPodGroupStatusController (:586) waits for controller/podgroup.py,
-    which comes with the host-only subsystems (item 4);
+TestPodGroupStatusController runs the reference's cases against the
+port's controller/podgroup.py (a copy) and control plane, its pods the
+reference's, converted. Held elsewhere:
+  * test_assign_programs_registered (:440): the port's registry holds
+    the assign programs, in tests/test_torch_analysis.py
+    test_registry_names_equal_jax_less_mesh_assign_auction;
   * TestGangBackoff (:668) tests only GangDirector, whose counterparts
     are in tests/test_torch_gang.py already.
 """
@@ -603,3 +604,88 @@ class TestDefrag:
                 assert D.fragmentation(state_fn(), np.array(
                     [3000, 3 << 30, 0, 1], np.int64)) < 1.0
         assert outcomes["port"] == outcomes["jax"]
+
+
+# -- PodGroup status reconciliation ------------------------------------------
+
+
+class TestPodGroupStatusController:
+    """tests/test_optimizer.py TestPodGroupStatusController against the
+    port's controller, apiserver and client."""
+
+    def _plane(self):
+        from kubernetes_tpu_torch.apiserver.server import APIServer
+        from kubernetes_tpu_torch.client import LocalTransport, RESTClient
+        from kubernetes_tpu_torch.controller.framework import (
+            SharedInformerFactory,
+        )
+        from kubernetes_tpu_torch.controller.podgroup import (
+            PodGroupStatusController,
+        )
+
+        server = APIServer()
+        client = RESTClient(LocalTransport(server))
+        informers = SharedInformerFactory(client)
+        ctrl = PodGroupStatusController(client, informers)
+        informers.start()
+        informers.wait_for_sync()
+        return client, informers, ctrl
+
+    def test_reconciles_terminal_drift(self):
+        client, informers, ctrl = self._plane()
+        try:
+            pgr = client.resource("podgroups", "default")
+            pgr.create(TT.PodGroup(
+                metadata=TT.ObjectMeta(name="train"),
+                spec=TT.PodGroupSpec(min_member=2),
+            ))
+            for i in range(2):
+                client.pods().create(to_port(pod(
+                    f"m{i}", "100m",
+                    labels={TT.POD_GROUP_LABEL: "train", "app": "train"},
+                    node_name=f"n{i}")))
+            # the scheduler recorded a fully bound gang, then died
+            pgr.patch("train", {"status": {
+                "phase": "Scheduled", "members": 2, "scheduled": 2,
+            }}, subresource="status")
+            # one member finishes while the scheduler is away
+            client.pods().patch("m0", {"status": {
+                "phase": "Succeeded"}}, subresource="status")
+            informers.wait_for_sync()
+            import time as _t
+
+            deadline = _t.time() + 5
+            while _t.time() < deadline:
+                if ctrl.sync_once():
+                    break
+                _t.sleep(0.1)
+            got = pgr.get("train")
+            assert got.status.members == 1
+            assert got.status.scheduled == 1
+            assert got.status.phase == "Pending"  # below minMember now
+        finally:
+            informers.stop()
+
+    def test_no_patch_when_in_sync(self):
+        client, informers, ctrl = self._plane()
+        try:
+            pgr = client.resource("podgroups", "default")
+            pgr.create(TT.PodGroup(
+                metadata=TT.ObjectMeta(name="idle"),
+                spec=TT.PodGroupSpec(min_member=1),
+            ))
+            import time as _t
+
+            deadline = _t.time() + 5
+            while _t.time() < deadline:
+                ctrl.sync_once()
+                got = pgr.get("idle")
+                if got.status.phase == "Pending" \
+                        and got.status.members == 0:
+                    break
+                _t.sleep(0.1)
+            rv = pgr.get("idle").metadata.resource_version
+            assert ctrl.sync_once() == 0  # steady state: zero PATCHes
+            assert pgr.get("idle").metadata.resource_version == rv
+        finally:
+            informers.stop()
