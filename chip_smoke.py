@@ -274,14 +274,46 @@ non-zero:
      a quiet wave), K1's launches at the shard width, K8's (its churn
      waves re-place the tables whole: none; one launch a scatter if
      any), the idle share; any breached gate fails the run;
+  17. the remaining entry points driving a cluster on the card, in a
+     spawned process of their own: (a) `hyperkube local-up` (its CLI
+     code, on a thread of that process, the daemon on the card, 200
+     hollow nodes, the multizone cloud) with `hyperkube kubelet` (the
+     process runtime, its node API behind a token) and `hyperkube proxy`
+     for real-node-0 as processes, driven by `python -m
+     kubernetes_tpu_torch.kubectl` processes: every node Ready and the
+     components healthy, the real node tainted, an RC of pause pods
+     created from a JSON manifest and scaled (every pod bound, no node
+     over its allocatable, none on the tainted node, pods bound a
+     second), `describe pod` with its Scheduled event, `expose` and an A
+     query to local-up's kube-dns over UDP, a pod that tolerates the
+     taint placed by the daemon on real-node-0 and its `logs` and `exec`
+     through the node API, `drain` of a hollow node with every
+     replacement bound elsewhere; K1 launched (its launches by (J, N)
+     and K3's); (b) a federation of (a)'s cluster (east) and a cluster
+     of hyperkube processes (west: apiserver, controller-manager, three
+     fake-runtime kubelets, proxy, and the scheduler on the card with
+     KUBERNETES_TPU_PROFILE naming a file, so its stack sampler is
+     armed and the profile runs greedy, as in the JAX hyperkube) under
+     `federation-apiserver` and `federation-controller-manager`
+     processes: `kubefed join` of both, both Ready, a federated Service
+     in both members, a federated RC split 5/5 with every pod bound,
+     `kubefed unjoin west` removing west's RC and Service while east's
+     share goes to 10, and the west scheduler's sampler file on SIGTERM;
+     every step's line with the RSS and threads of the phase's process;
+     every process it starts is stopped, and whatever is left below the
+     script when the phase's process ends, however it ends, is killed;
   11. the kernels line, with the launch counts of each path it drove
      (K1's bf16 mode as its own entry, resource_probe_bf16: phase 12's
      bf16 arms are its path; K7's auction and beam as assign_auction and
      assign_beam: phase 13 is their path; K1's mesh paths; K8 as
-     resident_scatter, the churn wave its path); then nvidia-smi's line,
+     resident_scatter, the churn wave its path; K1's local_up and
+     federation_east paths of phase 17: east's daemon runs in the
+     phase's process, west's scheduler in its own, uncounted); then
+     nvidia-smi's line,
      then the result line {"ok": true, "device": {...}}.
 
-Phases 15 and 16 run after phase 14, before the kernels line.
+Phases 15, 16 and 17 run after phase 14, in that order, before the
+kernels line.
 
 Every idle share comes from a profiler trace kept only when its K1, K3,
 K6 and K7 events equal the launches the wrappers counted during the
@@ -312,7 +344,10 @@ import json
 import math
 import multiprocessing
 import os
+import signal
+import socket
 import statistics
+import struct
 import subprocess
 import sys
 import threading
@@ -3829,6 +3864,644 @@ def phase_soaks(t0: float) -> tuple:
     return phase_wire_soak(PK, ZK), phase_mesh_soak(PK, RK)
 
 
+# -- phase 17: hyperkube local-up and a two-cluster federation ---------------
+
+#: 17a: (hollow nodes, the RC's replicas, its replicas after the scale).
+#: A hollow node of the faithful shape costs ~6 threads (kubemark/
+#: hollow.py), so a few hundred fit one process; phase 16 runs 1,000 in
+#: the fleet shape. Its kubelet also keeps a thread a pod (kubelet/
+#: kubelet.py _PodWorker, pod_workers.go), and the H100's machine kills
+#: (SIGKILL) a process that starts its 4,001st-4,100th thread, whatever
+#: its stack size: 200 nodes and 2,000 pods peak at ~3,600 threads.
+LOCAL_UP_SIZE = (200, 1500, 2000)
+#: the longest phase 17 may take before the script gives up on it
+PHASE17_LIMIT_S = 300
+#: the monotonic time by which phase 17's steps end (phase_cluster sets
+#: it PHASE17_TEARDOWN_S before the limit, every wait is cut to it)
+PHASE17_DEADLINE = math.inf
+PHASE17_TEARDOWN_S = 40
+#: 17b: the federated RC's replicas, split evenly over the two members
+FED_REPLICAS = 10
+#: the clusterIP that 17a gives the density Service
+DENSITY_CLUSTER_IP = "10.0.0.80"
+#: the bearer token that guards the real node's API (logs, exec)
+NODE_TOKEN = "chip-smoke-node-token"
+#: a pause pod's requests (scheduler_perf's shape, test/component/
+#: scheduler/perf/util.go)
+PAUSE_REQUESTS = {"cpu": "100m", "memory": "500Mi"}
+
+
+def dns_port() -> int:
+    """A localhost port free now for TCP and for UDP."""
+    from kubernetes_tpu_torch.harness.procs import free_ports
+
+    while True:
+        port = free_ports(1)[0]
+        with socket.socket(socket.AF_INET, socket.SOCK_DGRAM) as u:
+            try:
+                u.bind(("127.0.0.1", port))
+            except OSError:
+                continue
+            return port
+
+
+def left(timeout: float) -> float:
+    """timeout, cut to what is left of phase 17's time; raises when
+    nothing is left, so that a stall ends in the step that stalled."""
+    rest = PHASE17_DEADLINE - time.monotonic()
+    if rest <= 0:
+        raise AssertionError(f"phase 17 ran out of its {PHASE17_LIMIT_S} s")
+    return min(timeout, rest)
+
+
+def kubectl(url: str, *args, timeout: float = 120.0) -> str:
+    """One kubectl process (harness/child.kubectl) within phase 17's
+    time."""
+    from kubernetes_tpu_torch.harness import child
+
+    return child.kubectl(url, *args, timeout=left(timeout))
+
+
+def wait_for(pred, timeout: float, what: str, interval: float = 0.5):
+    """pred's first true value, polled (utils/wait.poll_until) within
+    phase 17's time; raises AssertionError(what)."""
+    from kubernetes_tpu_torch.utils.wait import poll_until
+
+    got: list = []
+    timeout = left(timeout)
+    if not poll_until(lambda: got.append(pred()) or got[-1], interval,
+                      timeout):
+        raise AssertionError(f"timed out after {timeout:.0f} s: {what}")
+    return got[-1]
+
+
+def proc_status(pid: int) -> dict:
+    """A process's resident set (MB) and its threads, from /proc."""
+    out = {}
+    try:
+        with open(f"/proc/{pid}/status") as f:
+            for line in f:
+                key, _, value = line.partition(":")
+                if key == "VmRSS":
+                    out["rss_mb"] = int(value.split()[0]) / 1024.0
+                elif key == "Threads":
+                    out["threads"] = int(value)
+    except OSError:
+        pass
+    return out
+
+
+def is_ready(node: dict) -> bool:
+    return any(c["type"] == "Ready" and c["status"] == "True"
+               for c in node["status"].get("conditions", []))
+
+
+def rc_manifest(name: str, replicas: int) -> dict:
+    return {"apiVersion": "v1", "kind": "ReplicationController",
+            "metadata": {"name": name, "namespace": "default"},
+            "spec": {"replicas": replicas, "selector": {"name": name},
+                     "template": {
+                         "metadata": {"labels": {"name": name}},
+                         "spec": {"containers": [{
+                             "name": "pause", "image": "kubernetes/pause",
+                             "requests": dict(PAUSE_REQUESTS)}]}}}}
+
+
+def write_json(tmp: str, name: str, obj: dict) -> str:
+    path = os.path.join(tmp, name)
+    with open(path, "w") as f:
+        json.dump(obj, f)
+    return path
+
+
+def unbound(client, selector: str) -> list:
+    """Names of the selected pods that no node holds yet."""
+    pods, _ = client.pods("default").list(label_selector=selector,
+                                          field_selector="spec.nodeName=")
+    return [p.metadata.name for p in pods]
+
+
+def wait_rc_bound(client, name: str, replicas: int, timeout: float) -> list:
+    """Waits until the RC has `replicas` pods and every one is bound ->
+    its pods. Polls the RC's status and the unbound pods (a short list)
+    and lists every pod only once both say done; a timeout reports the
+    last of each."""
+    rcs = client.resource("replicationcontrollers", "default")
+    seen: dict = {}
+
+    def done():
+        seen["replicas"] = rcs.get(name).status.replicas
+        seen["unbound"] = len(unbound(client, f"name={name}"))
+        if seen["replicas"] != replicas or seen["unbound"]:
+            return False
+        pods, _ = client.pods("default").list(label_selector=f"name={name}")
+        seen["listed"] = len(pods)
+        return pods if len(pods) == replicas and all(
+            p.spec.node_name for p in pods) else False
+
+    try:
+        return wait_for(done, timeout, f"rc/{name}: {replicas} pods bound",
+                        interval=1.0)
+    except AssertionError as e:
+        raise AssertionError(f"{e}; last seen {seen}") from None
+
+
+def check_capacity(client, pods) -> dict:
+    """No node's bound requests exceed its allocatable -> {node: pods}."""
+    from kubernetes_tpu_torch.api.resource import (
+        parse_quantity,
+        resource_list_cpu_milli,
+        resource_list_memory,
+    )
+
+    alloc = {n.metadata.name: n.status.allocatable
+             for n in client.nodes().list()[0]}
+    used: dict = {}
+    for p in client.pods("").list()[0]:
+        if p.spec.node_name:
+            cpu, mem, k = used.get(p.spec.node_name, (0, 0, 0))
+            for c in p.spec.containers:
+                cpu += resource_list_cpu_milli(c.requests)
+                mem += resource_list_memory(c.requests)
+            used[p.spec.node_name] = (cpu, mem, k + 1)
+    for node, (cpu, mem, k) in used.items():
+        a = alloc[node]
+        if (cpu > resource_list_cpu_milli(a) or mem > resource_list_memory(a)
+                or k > parse_quantity(a.get("pods", "110")).value()):
+            raise AssertionError(f"{node} over its allocatable: {cpu}m "
+                                 f"cpu, {mem} memory, {k} pods of {a}")
+    per_node: dict = {}
+    for p in pods:
+        per_node[p.spec.node_name] = per_node.get(p.spec.node_name, 0) + 1
+    return per_node
+
+
+def dns_a(host: str, port: int, name: str) -> list:
+    """The A records a UDP query for name answers (RFC 1035)."""
+    txn = 0x1717
+    query = bytearray(struct.pack("!HHHHHH", txn, 0x0100, 1, 0, 0, 0))
+    for label in name.split("."):
+        query += bytes([len(label)]) + label.encode()
+    query += b"\0" + struct.pack("!HH", 1, 1)
+    with socket.socket(socket.AF_INET, socket.SOCK_DGRAM) as s:
+        s.settimeout(5)
+        s.sendto(bytes(query), (host, port))
+        data, _ = s.recvfrom(4096)
+    tid, flags, qd, an, _ns, _ar = struct.unpack_from("!HHHHHH", data, 0)
+    if tid != txn or not flags & 0x8000:
+        raise AssertionError(f"DNS: not an answer to the query: {data!r}")
+    pos = 12
+    for _ in range(qd):
+        while data[pos]:
+            pos += 1 + data[pos]
+        pos += 5
+    out = []
+    for _ in range(an):
+        if data[pos] & 0xC0 == 0xC0:
+            pos += 2
+        else:
+            while data[pos]:
+                pos += 1 + data[pos]
+            pos += 1
+        rtype, _cls, _ttl, rdlen = struct.unpack_from("!HHIH", data, pos)
+        pos += 10
+        if rtype == 1:
+            out.append(socket.inet_ntoa(data[pos:pos + rdlen]))
+        pos += rdlen
+    return out
+
+
+class Steps:
+    """One JSON line a step of a phase 17 cell, each with its wall."""
+
+    def __init__(self, cell: str):
+        self.cell = cell
+        self.t0 = self.last = time.perf_counter()
+
+    def done(self, step: str, **kw) -> None:
+        """Its line, with the wall since the last step and the RSS and
+        threads of this process (local-up's, in 17a)."""
+        now = time.perf_counter()
+        emit(self.cell, step=step, wall_s=now - self.last,
+             **proc_status(os.getpid()), **kw)
+        self.last = now
+
+    def total(self) -> float:
+        return time.perf_counter() - self.t0
+
+
+def phase_local_up(PK, ZK, tmp: str, children: list, device: str,
+                   size: tuple):
+    """17a: `hyperkube local-up` (in this process, on a daemon thread)
+    with a real kubelet and a proxy beside it, driven by kubectl. ->
+    (the cluster's URL, its client, the real node's kubelet)."""
+    from kubernetes_tpu_torch import hyperkube
+    from kubernetes_tpu_torch.client.rest import RESTClient
+    from kubernetes_tpu_torch.client.transport import HTTPTransport
+    from kubernetes_tpu_torch.harness.child import Child
+    from kubernetes_tpu_torch.harness.procs import free_ports
+
+    n_nodes, first, scaled = size
+    port, dns = free_ports(1)[0], dns_port()
+    url = f"http://127.0.0.1:{port}"
+    reset(PK, ZK)
+    steps = Steps("local_up")
+    failed: list = []
+
+    def local_up():
+        try:
+            hyperkube.main(["local-up", "--port", str(port), "--dns-port",
+                            str(dns), "--nodes", str(n_nodes),
+                            "--cloud-provider", "multizone", "--device",
+                            device])
+        except BaseException as e:  # the phase raises it below
+            failed.append(e)
+
+    threading.Thread(target=local_up, daemon=True, name="local-up").start()
+    client = RESTClient(HTTPTransport(url, timeout=60.0))
+
+    def up():
+        if failed:
+            raise RuntimeError("hyperkube local-up failed") from failed[0]
+        try:
+            return client.healthz()
+        except Exception:
+            return False
+
+    wait_for(up, 120, "local-up's apiserver", interval=0.1)
+    kubelet = Child.hyperkube("kubelet real-node-0", [
+        "kubelet", "--server", url, "--node", "real-node-0", "--serve-api",
+        "--auth-token", NODE_TOKEN])
+    children.append(kubelet)
+    proxy = Child.hyperkube("proxy real-node-0", [
+        "proxy", "--server", url, "--node", "real-node-0"])
+    children.append(proxy)
+    kubelet.wait_line(r"^kubelet real-node-0 running \(process runtime\)",
+                      left(120))
+    proxy.wait_line(r"^kube-proxy real-node-0 running", left(120))
+    steps.done("start", url=url, dns_port=dns, hollow_nodes=n_nodes)
+
+    # 1. every node Ready, the scheduler and the controller-manager healthy
+    def ready_nodes():
+        up()
+        items = json.loads(kubectl(url, "get", "nodes", "-o",
+                                   "json"))["items"]
+        return [n["metadata"]["name"] for n in items if is_ready(n)]
+
+    ready = wait_for(lambda: (lambda r: r if len(r) == n_nodes + 1
+                              else False)(ready_nodes()), 180,
+                     f"{n_nodes + 1} nodes Ready")
+
+    def healthy():
+        rows = kubectl(url, "get", "componentstatuses").splitlines()[1:]
+        return {r.split()[0] for r in rows if r.split()[1] == "Healthy"}
+
+    components = wait_for(
+        lambda: (lambda h: h if {"scheduler", "controller-manager"} <= h
+                 else False)(healthy()), 60,
+        "the scheduler and the controller-manager healthy")
+    steps.done("ready", nodes_ready=len(ready), healthy=sorted(components))
+    # 2. keep the pause pods off the real machine
+    kubectl(url, "taint", "nodes", "real-node-0", "dedicated=smoke:NoSchedule")
+    steps.done("taint", node="real-node-0")
+    # 3. the RC at scheduler_perf's shape
+    k1_before = PK.LAUNCHES
+    kubectl(url, "create", "-f", write_json(tmp, "rc.json",
+                                           rc_manifest("density", first)))
+    wait_rc_bound(client, "density", first, 240)
+    steps.done("create", pods=first,
+               pods_per_s=first / (time.perf_counter() - steps.last))
+    # 4. scaled up
+    kubectl(url, "scale", "rc/density", "--replicas", str(scaled))
+    pods = wait_rc_bound(client, "density", scaled, 240)
+    steps.done("scale", pods=scaled, pods_per_s=(scaled - first) / (
+        time.perf_counter() - steps.last))
+    k1_traffic = PK.LAUNCHES - k1_before
+    # 5. within capacity, none on the tainted real node
+    per_node = check_capacity(client, pods)
+    if "real-node-0" in per_node:
+        raise AssertionError(f"{per_node['real-node-0']} pause pods on the "
+                             f"tainted real-node-0")
+    steps.done("capacity", nodes_used=len(per_node),
+               max_pods_a_node=max(per_node.values()),
+               min_pods_a_node=min(per_node.values()))
+    # 6. the Scheduled event
+    one = sorted(p.metadata.name for p in pods)[0]
+    desc = kubectl(url, "describe", "pod", one)
+    if "Scheduled" not in desc:
+        raise AssertionError(f"describe pod {one}: no Scheduled event")
+    steps.done("describe", pod=one, events=[
+        ln.strip() for ln in desc.splitlines() if "Scheduled" in ln][:2])
+    # 7. the Service by name through kube-dns
+    kubectl(url, "expose", "rc/density", "--port", "80")
+    # the apiserver allocates no clusterIP (the JAX package's neither:
+    # ROADMAP.md queue 3), and kube-dns answers a Service without one
+    # with its endpoints' IPs, so the operator assigns it one
+    kubectl(url, "patch", "svc", "density", "-p",
+            json.dumps({"spec": {"clusterIp": DENSITY_CLUSTER_IP}}))
+    svc = json.loads(kubectl(url, "get", "svc", "density", "-o", "json"))
+    cluster_ip = svc["spec"]["clusterIp"]
+    answer = wait_for(lambda: dns_a("127.0.0.1", dns,
+                                    "density.default.svc.cluster.local"),
+                      30, "kube-dns answers density's A record")
+    if answer != [cluster_ip]:
+        raise AssertionError(f"DNS answered {answer}, the service's "
+                             f"clusterIP is {cluster_ip}")
+    steps.done("dns", name="density.default.svc.cluster.local", a=answer,
+               cluster_ip=cluster_ip)
+    # 8. a real process on the real node, placed by the daemon
+    kubectl(url, "create", "-f", write_json(tmp, "hello.json", {
+        "apiVersion": "v1", "kind": "Pod",
+        "metadata": {"name": "hello", "namespace": "default"},
+        "spec": {"nodeSelector": {"kubernetes.io/hostname": "real-node-0"},
+                 "tolerations": [{"key": "dedicated", "operator": "Equal",
+                                  "value": "smoke",
+                                  "effect": "NoSchedule"}],
+                 "containers": [{"name": "hello", "image": "busybox",
+                                 "command": ["sh", "-c",
+                                             "echo hello-from-the-card; "
+                                             "sleep 3600"]}]}}))
+    hello = wait_for(lambda: (lambda p: p if p.status.phase == "Running"
+                              else False)(client.pods("default").get(
+                                  "hello")), 60, "pod hello Running")
+    if hello.spec.node_name != "real-node-0":
+        raise AssertionError(f"hello bound to {hello.spec.node_name}")
+    logs = wait_for(lambda: (lambda out: out if "hello-from-the-card" in out
+                             else False)(kubectl(
+                                 url, "--node-token", NODE_TOKEN, "logs",
+                                 "hello")), 30, "kubectl logs hello")
+    out = kubectl(url, "--node-token", NODE_TOKEN, "exec", "hello", "--",
+                  "echo", "hi")
+    if out.strip() != "hi":
+        raise AssertionError(f"kubectl exec hello echo hi: {out!r}")
+    steps.done("logs_exec", node=hello.spec.node_name,
+               logs=[ln for ln in logs.splitlines() if ln][:3],
+               exec=out.strip())
+    # 9. drain a hollow node: the RC's replacements land elsewhere
+    drained = "hollow-node-0000"
+    evicted = per_node.get(drained, 0)
+    kubectl(url, "drain", drained)
+    pods = wait_rc_bound(client, "density", scaled, 120)
+    stayed = [p.metadata.name for p in pods if p.spec.node_name == drained]
+    if stayed or not evicted:
+        raise AssertionError(f"drain {drained}: {evicted} evicted, "
+                             f"{len(stayed)} pods bound there after")
+    steps.done("drain", node=drained, evicted=evicted, rebound=scaled)
+    k1, k3 = PK.LAUNCHES, ZK.LAUNCHES
+    emit("local_up", step="total", wall_s=steps.total(), pods=scaled,
+         k1_launches=k1, k1_launches_in_traffic=k1_traffic,
+         k1_launches_by_shape=shapes(PK.LAUNCHES_BY_SHAPE), k3_launches=k3,
+         k3_launches_by_shape=k3_shapes_of(ZK))
+    # on the CPU the wrapper takes the plain version and counts nothing
+    if device == "cuda" and k1 <= 0:
+        raise AssertionError("local-up: the daemon never launched K1")
+    return url, client, kubelet
+
+
+def phase_federation(PK, ZK, east_url: str, east, tmp: str,
+                     children: list, device: str):
+    """17b: a federation of local-up's cluster (east) and a cluster of
+    processes (west) whose scheduler runs on the card with the stack
+    sampler armed. -> (K1 launches, shapes, K3 launches) of east's
+    daemon, which runs in this process; west's scheduler is a process of
+    its own, whose launches no counter here sees."""
+    from kubernetes_tpu_torch import federation  # noqa: F401 (Cluster)
+    from kubernetes_tpu_torch.client.rest import APIStatusError, RESTClient
+    from kubernetes_tpu_torch.client.transport import HTTPTransport
+    from kubernetes_tpu_torch.harness.child import (
+        HYPERKUBE, URL, Child, child_env,
+    )
+
+    reset(PK, ZK)
+    steps = Steps("federation")
+
+    def start(name, args, **kw):
+        child = Child.hyperkube(name, args, **kw)
+        children.append(child)
+        return child
+
+    fed_url = start("federation-apiserver", [
+        "federation-apiserver", "--port", "0"]).wait_line(
+            URL, left(120)).group(0)
+    start("federation-controller-manager", [
+        "federation-controller-manager", "--server", fed_url])
+    west_url = start("west apiserver", ["apiserver", "--port", "0"]).wait_line(
+        URL, left(120)).group(0)
+    west = RESTClient(HTTPTransport(west_url, timeout=60.0))
+    start("west controller-manager", ["controller-manager", "--server",
+                                       west_url])
+    for i in range(3):
+        start(f"west kubelet {i}", ["kubelet", "--server", west_url,
+                                    "--node", f"west-{i}", "--fake-runtime"])
+    start("west proxy", ["proxy", "--server", west_url, "--node", "west-0"])
+    dump = os.path.join(tmp, "west-scheduler.prof")
+    sched = start("west scheduler", [
+        "scheduler", "--master", west_url, "--device", device],
+        env=child_env(KUBERNETES_TPU_PROFILE=dump))
+    sched.wait_line(r"^kube-scheduler running", left(120))
+    # the profile's name is a path: the scheduler warns and runs greedy
+    warned = sched.wait_line(r"unknown KUBERNETES_TPU_PROFILE", left(30))
+    steps.done("start", federation=fed_url, west=west_url,
+               west_profile_warning=warned.string)
+    fed = RESTClient(HTTPTransport(fed_url, timeout=60.0))
+    for name, url in (("east", east_url), ("west", west_url)):
+        out = subprocess.run(HYPERKUBE + ["kubefed", "join", name, "--server",
+                                          fed_url, "--cluster-endpoint",
+                                          url], capture_output=True,
+                             text=True, env=child_env(), timeout=left(60))
+        if out.returncode != 0:
+            raise AssertionError(f"kubefed join {name}: {out.stderr}")
+
+    def ready_members():
+        return sorted(c.metadata.name for c in fed.resource(
+            "clusters").list()[0] if any(
+                k.type == "Ready" and k.status == "True"
+                for k in c.status.conditions))
+
+    wait_for(lambda: ready_members() == ["east", "west"], 60,
+             "east and west Ready")
+    steps.done("join", ready=ready_members())
+    kubectl(fed_url, "create", "-f", write_json(tmp, "fed-svc.json", {
+        "apiVersion": "v1", "kind": "Service",
+        "metadata": {"name": "fed", "namespace": "default"},
+        "spec": {"selector": {"name": "fed"}, "ports": [{"port": 80}]}}))
+    kubectl(fed_url, "create", "-f", write_json(
+        tmp, "fed-rc.json", rc_manifest("fed", FED_REPLICAS)))
+
+    def has_service(client):
+        try:
+            client.resource("services", "default").get("fed")
+            return True
+        except APIStatusError:
+            return False
+
+    wait_for(lambda: has_service(east) and has_service(west), 60,
+             "the federated Service in both members")
+    half = FED_REPLICAS // 2
+    east_pods = wait_rc_bound(east, "fed", half, 120)
+    west_pods = wait_rc_bound(west, "fed", FED_REPLICAS - half, 120)
+    k1_east = PK.LAUNCHES
+    steps.done("spread", east=len(east_pods), west=len(west_pods),
+               west_nodes=sorted({p.spec.node_name for p in west_pods}),
+               k1_launches_east=k1_east)
+    out = subprocess.run(HYPERKUBE + ["kubefed", "unjoin", "west",
+                                      "--server", fed_url],
+                         capture_output=True, text=True, env=child_env(),
+                         timeout=left(120))
+    if out.returncode != 0:
+        raise AssertionError(f"kubefed unjoin west: {out.stderr}")
+    wait_for(lambda: not has_service(west) and not west.resource(
+        "replicationcontrollers", "default").list()[0], 60,
+        "west's RC and Service removed")
+    east_all = wait_rc_bound(east, "fed", FED_REPLICAS, 120)
+    steps.done("unjoin", west_rcs=0, west_services=0, east=len(east_all))
+    if sched.stop() != 0:
+        raise AssertionError(f"west scheduler exit {sched.proc.returncode}")
+    with open(dump) as f:
+        profile = f.read().splitlines()
+    if not profile:
+        raise AssertionError("the west scheduler's sampler wrote nothing")
+    steps.done("sampler", lines=len(profile), head=profile[:5])
+    k1 = PK.LAUNCHES
+    emit("federation", step="total", wall_s=steps.total(),
+         k1_launches_east=k1,
+         k1_launches_east_by_shape=shapes(PK.LAUNCHES_BY_SHAPE),
+         k3_launches_east=ZK.LAUNCHES)
+    return k1, shapes(PK.LAUNCHES_BY_SHAPE), ZK.LAUNCHES
+
+
+def phase_cluster(t0: float, device: str = "cuda",
+                  size: tuple = LOCAL_UP_SIZE) -> dict:
+    """Phase 17 in a fresh interpreter (run_spawned, so that local-up's
+    hollow kubelets, sockets and threads stay out of the main process):
+    17a, then 17b on 17a's cluster, every wait cut to PHASE17_DEADLINE.
+    Stops every process it starts. device and size (LOCAL_UP_SIZE's
+    shape) let the phase run small on the CPU. -> {path: (K1 launches, shapes, K3
+    launches)}."""
+    global T0, PHASE17_DEADLINE
+    T0 = t0
+    PHASE17_DEADLINE = time.monotonic() + PHASE17_LIMIT_S - PHASE17_TEARDOWN_S
+    import tempfile
+
+    from kubernetes_tpu_torch.ops import probe_kernel as PK
+    from kubernetes_tpu_torch.ops import zreplay_kernel as ZK
+
+    children: list = []
+    kubelet = None
+    with tempfile.TemporaryDirectory(prefix="chip_smoke17_") as tmp:
+        try:
+            url, east, kubelet = phase_local_up(PK, ZK, tmp, children,
+                                                device, size)
+            local_up = (PK.LAUNCHES, shapes(PK.LAUNCHES_BY_SHAPE),
+                        ZK.LAUNCHES)
+            fed = phase_federation(PK, ZK, url, east, tmp, children,
+                                   device)
+            # the real node's container goes with its pod; the kubelet
+            # reaps the rest on SIGINT (kl.stop, runtime.close)
+            east.pods("default").delete("hello")
+        finally:
+            for child in reversed(children):
+                child.stop(signal.SIGINT if child is kubelet
+                           else signal.SIGTERM)
+    return {"local_up": local_up, "federation_east": fed}
+
+
+def descendants() -> set:
+    """The PIDs of every process below this one, from /proc."""
+    kids: dict = {}
+    for entry in os.listdir("/proc"):
+        if entry.isdigit():
+            try:
+                with open(f"/proc/{entry}/stat") as f:
+                    ppid = int(f.read().rsplit(")", 1)[1].split()[1])
+            except (OSError, IndexError, ValueError):
+                continue
+            kids.setdefault(ppid, []).append(int(entry))
+    out, todo = set(), [os.getpid()]
+    while todo:
+        for pid in kids.get(todo.pop(), ()):
+            out.add(pid)
+            todo.append(pid)
+    return out
+
+
+def _spawned(send, fn, args) -> None:
+    try:
+        send.send((True, fn(*args)))
+    except BaseException:
+        import traceback
+
+        send.send((False, traceback.format_exc()))
+
+
+def run_spawned(fn, args: tuple, limit: float, what: str):
+    """fn(*args) in a spawned process -> its result. Raises at once when
+    that process dies without one (a SIGKILL included), naming its last
+    RSS and threads, and after limit seconds. This process is made the
+    subreaper of what it spawns (prctl PR_SET_CHILD_SUBREAPER), so that
+    whatever fn's process leaves behind, even the orphans of a child
+    that was killed, is still below this one: every such process is
+    killed when fn's process ends, however it ends."""
+    import ctypes
+    from multiprocessing import resource_tracker
+
+    if ctypes.CDLL(None, use_errno=True).prctl(36, 1, 0, 0, 0):
+        raise OSError(ctypes.get_errno(), "prctl(PR_SET_CHILD_SUBREAPER)")
+    resource_tracker.ensure_running()
+    before = descendants()
+    ctx = multiprocessing.get_context("spawn")
+    recv, send = ctx.Pipe(duplex=False)
+    proc = ctx.Process(target=_spawned, args=(send, fn, args), name=what)
+    proc.start()
+    send.close()
+    deadline = time.monotonic() + limit
+    last: dict = {}
+    try:
+        while True:
+            if recv.poll(1.0):
+                try:
+                    ok, value = recv.recv()
+                    break
+                except EOFError:
+                    pass
+            if not proc.is_alive():
+                proc.join()
+                raise RuntimeError(f"{what}: its process died (exit "
+                                   f"{proc.exitcode}) with no result; last "
+                                   f"seen {last}")
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"{what}: no result in {limit} s; last "
+                                   f"seen {last}")
+            now = proc_status(proc.pid)
+            if "rss_mb" in now:  # not yet a zombie
+                last = now
+    finally:
+        if proc.is_alive():
+            proc.kill()
+        proc.join()
+        stray = descendants() - before
+        # a zombie (an orphan that ended before it was reaped) has no
+        # command line: it is reaped, not counted
+        names = []
+        for pid in stray:
+            with contextlib.suppress(OSError), open(
+                    f"/proc/{pid}/cmdline", "rb") as f:
+                name = f.read().replace(b"\0", b" ").decode()[:120]
+                if name:
+                    names.append(name)
+        for pid in stray:
+            with contextlib.suppress(OSError):
+                os.kill(pid, signal.SIGKILL)
+        for pid in stray:
+            with contextlib.suppress(ChildProcessError, OSError):
+                os.waitpid(pid, 0)
+        emit("spawned_sweep", what=what, killed=len(names),
+             commands=names, reaped=len(stray))
+    if not ok:
+        raise RuntimeError(f"{what} failed:\n{value}")
+    return value
+
+
 # -- phase 15: the contract audit --------------------------------------------
 
 
@@ -4123,6 +4796,7 @@ def run(args, jobs, audit) -> int:
         (soak_k1, soak_k1_shapes, soak_k3), (
             mesh_soak_k1, mesh_soak_k1_shapes, mesh_soak_k8,
             mesh_soak_k8_shapes) = soak_pool.apply(phase_soaks, (T0,))
+    cluster = run_spawned(phase_cluster, (T0,), PHASE17_LIMIT_S, "phase 17")
 
     # the density path probes J=128 over the 5,000 nodes padded to 8,192;
     # the zoned density path runs one 50,000-pick run in a 65,536 bucket
@@ -4149,7 +4823,8 @@ def run(args, jobs, audit) -> int:
                              **{f"optimizing_{k}": v[0]
                                 for k, v in opt_paths.items()},
                              **mesh_k1, "wire_soak": soak_k1,
-                             "mesh_soak": mesh_soak_k1},
+                             "mesh_soak": mesh_soak_k1,
+                             **{k: v[0] for k, v in cluster.items()}},
         "launches_by_shape": {"density": density_shapes,
                               "zoned_density": z_k1_shapes,
                               "many_templates": tpl_k1_shapes,
@@ -4165,7 +4840,8 @@ def run(args, jobs, audit) -> int:
                                  for k, v in opt_paths.items()},
                               **mesh_k1_shapes,
                               "wire_soak": soak_k1_shapes,
-                              "mesh_soak": mesh_soak_k1_shapes},
+                              "mesh_soak": mesh_soak_k1_shapes,
+                              **{k: v[1] for k, v in cluster.items()}},
         "max_abs_err": max_err,
         "matches_plain": True,
         "ms": k1["ms"],
@@ -4205,7 +4881,9 @@ def run(args, jobs, audit) -> int:
         "replaces": "kubernetes_tpu/models/zreplay.py:59",
         "launches": z_k3,
         "launches_by_path": {"zoned_density": z_k3, "mixed": mixed_k3,
-                             "wire_soak": soak_k3},
+                             "wire_soak": soak_k3,
+                             **{k: v[2] for k, v in cluster.items()
+                                if v[2]}},
         "launches_by_shape": {"zoned_density": z_k3_shapes,
                               "mixed": mixed_k3_shapes},
         "max_abs_err": k3_err,

@@ -351,6 +351,9 @@ PROBE_CASES = (
     # the grouped header probe launches K1 at J=1, 7 of its 8 j lanes idle
     ("edge J=1", 1, 1024, {}),
     ("edge J=1 N=8192", 1, 8192, {}),
+    # `hyperkube local-up`'s waves: 201 nodes padded to 256 (two tiles)
+    ("main J=128 N=256", 128, 256, {}),
+    ("edge J=1 N=256", 1, 256, {}),
 )
 
 

@@ -1,26 +1,39 @@
-"""hyperkube (cmd/hyperkube) for the port: the apiserver, the scheduler
-daemon and the scheduler-extender service behind one entry point.
+"""hyperkube (cmd/hyperkube) for the port: every component behind one
+entry point.
 
     python -m kubernetes_tpu_torch.hyperkube apiserver --port 0
     python -m kubernetes_tpu_torch.hyperkube scheduler --master http://... \
         --device cuda
     python -m kubernetes_tpu_torch.hyperkube extender --port 8090 --device cpu
+    python -m kubernetes_tpu_torch.hyperkube controller-manager --server http://...
+    python -m kubernetes_tpu_torch.hyperkube kubelet --server http://... --node n1
+    python -m kubernetes_tpu_torch.hyperkube proxy --server http://... --node n1
+    python -m kubernetes_tpu_torch.hyperkube federation-apiserver --port 0
+    python -m kubernetes_tpu_torch.hyperkube federation-controller-manager \
+        --server http://...
+    python -m kubernetes_tpu_torch.hyperkube kubefed join east \
+        --server http://FED --cluster-endpoint http://...
+    python -m kubernetes_tpu_torch.hyperkube local-up --device cuda
+                                          # all-in-one cluster
+                                          # (hack/local-up-cluster.sh)
 
-PyTorch counterpart of kubernetes_tpu/hyperkube.py: `apiserver`
-(run_apiserver, the port's copy of the apiserver and its storage
-profiles: memory, durable with --data-dir, WAL-shipping primary and
-standby, quorum), `scheduler` (run_scheduler, the port's daemon on
---device, the card unless it says cpu; --master is the apiserver's URL,
-as --server) and `extender` (run_extender, the port's device program
-over the scheduler-extender wire protocol). The other components
-(controller-manager, kubelet, proxy, local-up, federation, kubefed) come
-with ROADMAP.md queue 1 item 4, which ports the subsystems they run, as
-does the JAX hyperkube's KUBERNETES_TPU_PROFILE stack sampler.
+PyTorch counterpart of kubernetes_tpu/hyperkube.py, with the same
+subcommands and flags. Three take a torch device: `scheduler` and
+`local-up` run the port's daemon on --device, the card unless it says
+cpu (--master is the apiserver's URL, as --server), and `extender` runs
+the port's device program over the scheduler-extender wire protocol.
+The others run the port's copies of the host subsystems as the JAX
+hyperkube runs them. As there, a non-empty KUBERNETES_TPU_PROFILE arms a
+stack sampler over every thread whose tally SIGTERM writes to the file
+that variable names; the scheduler reads the same variable as its
+profile's name (scheduler/optimizer), so one value does both.
 """
 
 from __future__ import annotations
 
 import argparse
+import signal
+import sys
 import time
 
 
@@ -201,6 +214,247 @@ def run_scheduler(args) -> None:
     sched.stop()
 
 
+def run_controller_manager(args) -> None:
+    from kubernetes_tpu_torch.controller.manager import ControllerManager
+
+    mgr = ControllerManager(
+        _client_from(args, user="system:kube-controller-manager")
+    ).start()
+    print("kube-controller-manager running", flush=True)
+    _wait_forever()
+    mgr.stop()
+
+
+def run_kubelet(args) -> None:
+    from kubernetes_tpu_torch.kubelet import (
+        FakeRuntime,
+        Kubelet,
+        KubeletConfig,
+        ProcessRuntime,
+    )
+
+    if args.config:
+        from kubernetes_tpu_torch.apis.componentconfig import (
+            load_component_config,
+        )
+
+        kc = load_component_config(args.config, "KubeletConfiguration")
+        # the config file is the whole configuration — its values are
+        # taken verbatim (a falsy file value must not lose to a flag);
+        # only nodeName falls back to --node when the file leaves it ""
+        cfg = KubeletConfig(
+            node_name=kc.node_name or args.node,
+            sync_frequency=kc.sync_frequency_seconds,
+            node_status_update_frequency=(
+                kc.node_status_update_frequency_seconds
+            ),
+            serve_api=kc.serve_api,
+            api_tls_cert=kc.api_tls_cert,
+            api_tls_key=kc.api_tls_key,
+            api_auth_token=kc.api_auth_token,
+            eviction_memory_threshold=kc.eviction_memory_threshold,
+            max_pods=kc.max_pods,
+        )
+    else:
+        cfg = KubeletConfig(
+            node_name=args.node,
+            serve_api=args.serve_api,
+            api_tls_cert=args.tls_cert_file,
+            api_tls_key=args.tls_private_key_file,
+            api_auth_token=args.auth_token,
+        )
+    # a standalone kubelet daemon runs REAL processes as containers
+    # (docker_manager.go's role); --fake-runtime keeps the hollow seam
+    runtime = FakeRuntime() if args.fake_runtime else ProcessRuntime()
+    if (cfg.serve_api and not args.fake_runtime
+            and not cfg.api_auth_token):
+        print(
+            "refusing: serving the node API with the process runtime "
+            "and no auth token would expose unauthenticated /exec "
+            "(remote code execution); set --auth-token or the config's "
+            "apiAuthToken (and ideally TLS)",
+            file=sys.stderr,
+        )
+        raise SystemExit(2)
+    kl = Kubelet(
+        _client_from(args, user=f"system:node:{cfg.node_name}",
+                     groups=("system:nodes",)),
+        cfg, runtime,
+    ).run()
+    print(f"kubelet {args.node} running "
+          f"({'fake' if args.fake_runtime else 'process'} runtime)",
+          flush=True)
+    _wait_forever()
+    kl.stop()
+    if isinstance(runtime, ProcessRuntime):
+        runtime.close()
+
+
+def run_proxy(args) -> None:
+    from kubernetes_tpu_torch.proxy import Proxier
+
+    p = Proxier(_client_from(args, user="system:kube-proxy"),
+                args.node).run()
+    print(f"kube-proxy {args.node} running", flush=True)
+    _wait_forever()
+    p.stop()
+
+
+def run_federation_apiserver(args) -> None:
+    """federation/cmd/federated-apiserver."""
+    from kubernetes_tpu_torch.federation import FederatedAPIServer
+
+    server = FederatedAPIServer()
+    host, port = server.serve_http(port=args.port)
+    print(f"federation-apiserver on http://{host}:{port}", flush=True)
+    _wait_forever()
+    server.shutdown_http()
+
+
+def run_federation_controller_manager(args) -> None:
+    """federation/cmd/federation-controller-manager."""
+    from kubernetes_tpu_torch.federation import FederationControllerManager
+
+    mgr = FederationControllerManager(_client(args.server)).start()
+    print(f"federation-controller-manager against {args.server}", flush=True)
+    _wait_forever()
+    mgr.stop()
+
+
+def run_kubefed(args) -> None:
+    """federation/cmd/kubefed join/unjoin against the federated API."""
+    from kubernetes_tpu_torch.federation import join_cluster, unjoin_cluster
+
+    fed = _client(args.server)
+    if args.action == "join":
+        if not args.cluster_endpoint:
+            raise SystemExit("join requires --cluster-endpoint")
+        join_cluster(fed, args.name, args.cluster_endpoint)
+        print(f"cluster {args.name!r} joined", flush=True)
+    else:
+        unjoin_cluster(fed, args.name)
+        print(f"cluster {args.name!r} unjoined", flush=True)
+
+
+def run_local_up(args) -> None:
+    """hack/local-up-cluster.sh: a full cluster in one process.
+
+    Deviation from kubernetes_tpu/hyperkube.py run_local_up: the
+    scheduler daemon runs on --device (the card unless it says cpu),
+    passed as SchedulerServerOptions(device=...), and --algorithm-provider
+    defaults to CUDAProvider where the JAX command has TPUProvider. A
+    daemon that cannot reach its device raises out of this function, so
+    the command exits non-zero rather than serving a cluster with no
+    scheduler."""
+    from kubernetes_tpu_torch.apiserver.server import APIServer
+    from kubernetes_tpu_torch.controller.manager import ControllerManager
+    from kubernetes_tpu_torch.dns import DNSRecords
+    from kubernetes_tpu_torch.kubemark import HollowCluster
+    from kubernetes_tpu_torch.scheduler.server import (
+        SchedulerServer,
+        SchedulerServerOptions,
+    )
+
+    server = APIServer(data_dir=args.data_dir or None)
+    host, port = server.serve_http(port=args.port)
+    # per-component identities (APF classification + audit): the shared
+    # admin client covers setup and the hollow kubelets; scheduler and
+    # controller-manager authenticate as themselves
+    client = _client(f"http://{host}:{port}", user="system:admin",
+                     groups=("system:masters",))
+    sched_client = _client(f"http://{host}:{port}",
+                           user="system:kube-scheduler")
+    mgr_client = _client(f"http://{host}:{port}",
+                         user="system:kube-controller-manager")
+    cluster = HollowCluster(client, args.nodes).run()
+    # real nodes: kubelets on the PROCESS runtime — pods scheduled there
+    # run as live OS processes (docker_manager.go's role, sandbox form)
+    real_kubelets = []
+    real_runtimes = []
+    if getattr(args, "real_nodes", 0):
+        from kubernetes_tpu_torch.kubelet import (
+            Kubelet,
+            KubeletConfig,
+            ProcessRuntime,
+        )
+
+        for i in range(args.real_nodes):
+            rt = ProcessRuntime()
+            real_runtimes.append(rt)
+            real_kubelets.append(Kubelet(
+                client,
+                KubeletConfig(node_name=f"real-node-{i:03d}"),
+                rt,
+            ).run())
+    # the cloud provider behind the controller-manager. "local" (the
+    # default): each hollow node gets a live userspace proxy and the
+    # provider's LoadBalancer fronts them, so `kubectl expose
+    # --type=LoadBalancer` provisions a balancer that forwards bytes.
+    # "multizone": the simulated regional cloud (zonal disks, async
+    # attach, per-zone LB frontends). "fake"/"": the recorder.
+    from kubernetes_tpu_torch.proxy.userspace import UserspaceProxier
+
+    proxiers = []
+    if getattr(args, "cloud_provider", "local") == "multizone":
+        from kubernetes_tpu_torch.cloudprovider import MultiZoneCloud
+
+        cloud = MultiZoneCloud(attach_latency=0.05, detach_latency=0.05)
+        for i in range(args.nodes):
+            cloud.add_instance(f"hollow-node-{i:04d}")
+    else:
+        from kubernetes_tpu_torch.cloudprovider import LocalCloud
+
+        cloud = LocalCloud()
+        for i in range(args.nodes):
+            node_name = f"hollow-node-{i:04d}"
+            proxier = UserspaceProxier(client, node_name=node_name).run()
+            proxiers.append(proxier)
+            cloud.register_node(node_name, proxier)
+    mgr = ControllerManager(mgr_client, cloud=cloud).start()
+    sched = SchedulerServer(
+        sched_client,
+        SchedulerServerOptions(algorithm_provider=args.algorithm_provider,
+                               device=args.device),
+    ).start()
+    # componentstatuses: the in-process analogue of the master probing
+    # scheduler/controller-manager health ports
+    def _sched_health():
+        ok = (sched.scheduler is not None
+              and not sched.scheduler.config.stop_everything.is_set())
+        return ok, "ok" if ok else "scheduling loop stopped"
+
+    def _mgr_health():
+        ok = mgr.is_leader()
+        return ok, "ok" if ok else "not the active leader"
+
+    server.register_component("scheduler", _sched_health)
+    server.register_component("controller-manager", _mgr_health)
+    dns = DNSRecords(client).run()
+    from kubernetes_tpu_torch.dns import DNSServer
+
+    dns_srv = DNSServer(dns)
+    dns_host, dns_port = dns_srv.serve(port=args.dns_port)
+    print(
+        f"local cluster up: http://{host}:{port} ({args.nodes} hollow nodes)\n"
+        f"kube-dns on {dns_host}:{dns_port}/udp+tcp "
+        f"(dig @{dns_host} -p {dns_port} <svc>.<ns>.svc.cluster.local)\n"
+        f"try: python -m kubernetes_tpu_torch.kubectl -s http://{host}:{port} get nodes",
+        flush=True,
+    )
+    _wait_forever()
+    dns_srv.shutdown()
+    dns.stop()
+    sched.stop()
+    mgr.stop()
+    for proxier in proxiers:
+        proxier.stop()
+    for kl in real_kubelets:
+        kl.stop()
+    for rt in real_runtimes:
+        rt.close()
+    cluster.stop()
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(prog="hyperkube")
     sub = ap.add_subparsers(dest="component", required=True)
@@ -316,16 +570,148 @@ def main(argv=None) -> None:
                    help="torch device of the scheduler (cpu runs it on "
                    "the host)")
 
+    p = sub.add_parser("controller-manager")
+    add_client_flags(p)
+
+    p = sub.add_parser("kubelet")
+    add_client_flags(p)
+    p.add_argument("--node", required=True)
+    p.add_argument(
+        "--fake-runtime", action=argparse.BooleanOptionalAction,
+        default=False,
+        help="hollow-node mode: instant in-memory containers instead of "
+        "real processes",
+    )
+    p.add_argument(
+        "--serve-api", action="store_true",
+        help="serve the node API (logs/exec/stats) and register its "
+        "endpoint on the Node status",
+    )
+    p.add_argument("--tls-cert-file", default="",
+                   help="serve the node API over TLS")
+    p.add_argument("--tls-private-key-file", default="")
+    p.add_argument(
+        "--auth-token", default="",
+        help="require `Authorization: Bearer <token>` on the node API "
+        "(an open /exec on a process runtime is remote code execution)",
+    )
+    p.add_argument(
+        "--config", default="",
+        help="versioned KubeletConfiguration file "
+        "(componentconfig/v1alpha1); file fields win over flags",
+    )
+
     p = sub.add_parser("extender")
     p.add_argument("--port", type=int, default=8090)
     p.add_argument("--device", default="cuda",
                    help="torch device of the program (cpu runs it on the "
                    "host)")
+
+    p = sub.add_parser("proxy")
+    add_client_flags(p)
+    p.add_argument("--node", default="")
+
+    p = sub.add_parser("federation-apiserver")
+    p.add_argument("--port", type=int, default=8180)
+
+    p = sub.add_parser("federation-controller-manager")
+    p.add_argument("--server", "-s", default="http://127.0.0.1:8180")
+
+    # kubefed join/unjoin (federation/cmd/kubefed): register/remove a
+    # member cluster in the federated apiserver
+    p = sub.add_parser("kubefed")
+    p.add_argument("action", choices=["join", "unjoin"])
+    p.add_argument("name")
+    p.add_argument("--server", "-s", default="http://127.0.0.1:8180",
+                   help="the FEDERATED apiserver")
+    p.add_argument("--cluster-endpoint", default="",
+                   help="member apiserver URL (join)")
+
+    p = sub.add_parser("local-up")
+    p.add_argument("--port", type=int, default=8080)
+    p.add_argument("--nodes", type=int, default=3)
+    p.add_argument("--algorithm-provider", default="CUDAProvider")
+    p.add_argument("--device", default="cuda",
+                   help="torch device of the scheduler (cpu runs it on "
+                   "the host)")
+    p.add_argument("--data-dir", default="",
+                   help="persist the apiserver store (WAL + snapshot)")
+    p.add_argument("--dns-port", type=int, default=0,
+                   help="kube-dns UDP+TCP port (0 = ephemeral; 53 needs root)")
+    p.add_argument(
+        "--real-nodes", type=int, default=0,
+        help="additionally run N kubelets on the PROCESS runtime: pods "
+        "scheduled there run as live OS processes",
+    )
+    p.add_argument(
+        "--cloud-provider", default="local",
+        choices=["local", "multizone"],
+        help="cloud provider behind the controller-manager: 'local' "
+        "(live byte-forwarding LBs) or 'multizone' (simulated regional "
+        "cloud: zonal disks, async attach, per-zone LB frontends)",
+    )
+
     args = ap.parse_args(argv)
+    import os
+
+    prof_path = os.environ.get("KUBERNETES_TPU_PROFILE", "")
+    if prof_path:
+        # perf diagnosis for daemon subprocesses: a low-overhead stack
+        # sampler over every thread (cProfile is per-thread and not
+        # safe to share across a threaded server); SIGTERM — the
+        # harness's shutdown signal — dumps the tally as text.
+        import collections
+        import threading
+        import traceback
+
+        samples = collections.Counter()
+
+        def _sample():
+            while True:
+                for frame in list(sys._current_frames().values()):
+                    stack = traceback.extract_stack(frame)[-3:]
+                    key = " <- ".join(
+                        f"{f.name}@{f.filename.rsplit('/', 1)[-1]}"
+                        f":{f.lineno}"
+                        for f in reversed(stack)
+                    )
+                    samples[key] += 1
+                time.sleep(0.005)
+
+        threading.Thread(target=_sample, daemon=True,
+                         name="profile-sampler").start()
+
+        def _dump(*_a):
+            # snapshot with retry: the sampler thread keeps inserting,
+            # and a "dict changed size" escape here would swallow the
+            # shutdown signal entirely
+            for _ in range(50):
+                try:
+                    snap = dict(samples)
+                    break
+                except RuntimeError:
+                    continue
+            else:
+                snap = {}
+            with open(prof_path, "w") as f:
+                for k, v in sorted(
+                    snap.items(), key=lambda kv: -kv[1]
+                )[:60]:
+                    f.write(f"{v:6d}  {k}\n")
+            os._exit(0)
+
+        signal.signal(signal.SIGTERM, _dump)
     {
         "apiserver": run_apiserver,
-        "scheduler": run_scheduler,
+        "federation-apiserver": run_federation_apiserver,
+        "federation-controller-manager": run_federation_controller_manager,
+        "kubefed": run_kubefed,
         "extender": run_extender,
+        "scheduler": run_scheduler,
+        "controller-manager": run_controller_manager,
+        "kubelet": run_kubelet,
+        "proxy": run_proxy,
+        "local-up": run_local_up,
     }[args.component](args)
 
 

@@ -8,6 +8,7 @@ hosts, the wave's dispatch tally, the gang layout, parking reasons,
 PodGroup status updates and victim sets must be equal exactly."""
 
 import random
+import time
 
 import numpy as np
 import pytest
@@ -363,3 +364,100 @@ def test_preemption_round_then_gang_binds():
     for start, length, _key, _prio in out["layout"]:
         span = out["hosts"][start:start + length]
         assert all(h is None for h in span) or None not in span
+
+
+# -- tests/test_gang.py's kubectl cases: the port's kubectl against the JAX
+# package's on the same PodGroup status ---------------------------------------
+
+
+def _control_plane(pkg):
+    """An apiserver and a client of the package named, with its kubectl."""
+    if pkg == "port":
+        from kubernetes_tpu_torch.apiserver.server import APIServer
+        from kubernetes_tpu_torch.client import LocalTransport, RESTClient
+        from kubernetes_tpu_torch.kubectl.cmd import Kubectl
+        T = TT
+    else:
+        from kubernetes_tpu.apiserver.server import APIServer
+        from kubernetes_tpu.client import LocalTransport, RESTClient
+        from kubernetes_tpu.kubectl.cmd import Kubectl
+        T = JT
+    client = RESTClient(LocalTransport(APIServer()))
+    return T, client, Kubectl(client)
+
+
+def _without_age(table):
+    """A kubectl table with its AGE column cut off (the one column that
+    depends on when each package's object was made)."""
+    lines = table.splitlines()
+    cut = lines[0].find("AGE")
+    return [ln[:cut].rstrip() if cut >= 0 else ln for ln in lines]
+
+
+def test_kubectl_get_and_describe_podgroups():
+    """tests/test_gang.py TestPodGroupAPI's kubectl case: a Parked status
+    reads back through get and describe, word for word as the JAX
+    package's kubectl prints it."""
+    status = {"phase": "Parked", "scheduled": 0, "members": 8,
+              "unschedulable": ["train-3", "train-7"],
+              "message": "gang parked: 2 of 8 members unschedulable "
+                         "(insufficient resources); no partial binds"}
+    out = {}
+    for pkg in ("port", "jax"):
+        T, client, k = _control_plane(pkg)
+        pgr = client.resource("podgroups", "default")
+        pgr.create(T.PodGroup(
+            metadata=T.ObjectMeta(name="train"),
+            spec=T.PodGroupSpec(min_member=8, priority=100,
+                                quota={"pods": "16"})))
+        pgr.patch("train", {"status": status}, subresource="status")
+        out[pkg] = (k.get("podgroups"), k.describe("pg", "train"))
+    table, desc = out["port"]
+    assert "MIN-MEMBER" in table and "Parked" in table
+    assert "0/8" in table
+    assert "Parked:" in desc and "insufficient resources" in desc
+    assert "train-3" in desc and "train-7" in desc
+    assert _without_age(table) == _without_age(out["jax"][0])
+    assert desc == out["jax"][1]
+
+
+def test_kubectl_describes_the_daemons_parked_gang():
+    """tests/test_gang.py TestGangEndToEnd's kubectl case: the port's
+    daemon (device="cpu") parks a minMember-short gang, kubectl describe
+    shows why, and the JAX package's kubectl prints the same description
+    of that status."""
+    from kubernetes_tpu_torch.scheduler.server import (
+        SchedulerServer,
+        SchedulerServerOptions,
+    )
+
+    T, client, k = _control_plane("port")
+    client.nodes().create(node(T, "n0", cpu="2", pods="8"))
+    pgr = client.resource("podgroups", "default")
+    pgr.create(T.PodGroup(metadata=T.ObjectMeta(name="waiting"),
+                          spec=T.PodGroupSpec(min_member=3)))
+    srv = SchedulerServer(client, SchedulerServerOptions(
+        algorithm_provider="CUDAProvider", device="cpu")).start()
+    try:
+        client.pods().create(pod(T, "waiting-0", cpu="100m",
+                                 group="waiting"))
+        deadline = time.monotonic() + 20
+        while (pgr.get("waiting").status.phase != "Parked"
+               and time.monotonic() < deadline):
+            time.sleep(0.05)
+        got = pgr.get("waiting").status
+        assert got.phase == "Parked"
+        desc = k.describe("podgroups", "waiting")
+    finally:
+        srv.stop()
+    assert "Parked:" in desc and "minMember 3" in desc
+    JT_, jclient, jk = _control_plane("jax")
+    jpgr = jclient.resource("podgroups", "default")
+    jpgr.create(JT_.PodGroup(metadata=JT_.ObjectMeta(name="waiting"),
+                             spec=JT_.PodGroupSpec(min_member=3)))
+    jpgr.patch("waiting", {"status": {
+        "phase": got.phase, "scheduled": got.scheduled,
+        "members": got.members, "unschedulable": list(got.unschedulable),
+        "preempted": got.preempted, "message": got.message}},
+        subresource="status")
+    assert desc == jk.describe("podgroups", "waiting")

@@ -91,6 +91,11 @@ COPIES = (
     "controller/serviceaccount.py",
     "kubemark/__init__.py", "kubemark/fleet.py", "kubemark/hollow.py",
     "harness/nemesis.py", "harness/procs.py", "harness/soak.py",
+    # the last host subsystems: the CLI, service discovery DNS and the
+    # federation control plane
+    "kubectl/__init__.py", "kubectl/__main__.py", "kubectl/cmd.py",
+    "kubectl/printers.py", "dns/__init__.py", "dns/server.py",
+    "dns/wire.py", "federation/__init__.py", "federation/federation.py",
 )
 #: functions the port's own modules keep verbatim from their counterparts
 FUNCTION_COPIES = {
@@ -147,7 +152,9 @@ FUNCTION_COPIES = {
     "harness/perf.py": ("_pipeline_snapshot", "_phase_table", "_measure",
                         "_scrape_counters"),
     "hyperkube.py": ("_client", "_client_from", "_wait_forever",
-                     "run_apiserver"),
+                     "run_apiserver", "run_controller_manager",
+                     "run_kubelet", "run_proxy", "run_federation_apiserver",
+                     "run_federation_controller_manager", "run_kubefed"),
     "analysis/__init__.py": ("Finding", "render_report"),
     "analysis/programs.py": ("_scenario", "_assign_args"),
     "analysis/lint.py": (
@@ -205,6 +212,7 @@ DEVIATIONS = {
     ("harness/perf.py", "schedule_pods_separate"):
         "KUBERNETES_TPU_WARM_SCAN",
     ("hyperkube.py", "run_scheduler"): "--device",
+    ("hyperkube.py", "run_local_up"): "device=...",
     ("analysis/programs.py", "<module>"): "sharding becomes placement",
     ("analysis/program_audit.py", "<module>"): "there is no jaxpr",
     ("analysis/lint.py", "<module>"): "program-scope family",
@@ -289,6 +297,8 @@ def test_import_leaves_jax_unloaded():
         "import kubernetes_tpu_torch.harness.procs\n"
         "import kubernetes_tpu_torch.harness.nemesis\n"
         "import kubernetes_tpu_torch.harness.mesh_soak\n"
+        "import kubernetes_tpu_torch.harness.child\n"
+        "import kubernetes_tpu_torch.harness.thread_census\n"
         "import kubernetes_tpu_torch.kubemark.fleet\n"
         "import kubernetes_tpu_torch.kubelet.server\n"
         "import kubernetes_tpu_torch.kubelet.process_runtime\n"
@@ -299,11 +309,47 @@ def test_import_leaves_jax_unloaded():
         "import kubernetes_tpu_torch.auth.webhook\n"
         "import kubernetes_tpu_torch.auth.serviceaccount\n"
         "import kubernetes_tpu_torch.utils.wait\n"
+        "import kubernetes_tpu_torch.kubectl\n"
+        "import kubernetes_tpu_torch.kubectl.printers\n"
+        "import kubernetes_tpu_torch.dns\n"
+        "import kubernetes_tpu_torch.federation\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'kubernetes_tpu')]\n"
         "assert not bad, bad\n"
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT),
+                          env=env, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+@pytest.mark.parametrize("argv", [
+    ["kubernetes_tpu_torch.kubectl", "--help"],
+    ["kubernetes_tpu_torch.hyperkube", "local-up", "--help"],
+], ids=lambda a: " ".join(a[:2]))
+def test_cli_help_leaves_jax_unloaded(argv):
+    """`python -m kubernetes_tpu_torch.kubectl --help` and `... hyperkube
+    local-up --help` print their usage, and the entry point runs as
+    `python -m` runs it without loading jax or kubernetes_tpu."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run([sys.executable, "-m", *argv], cwd=str(ROOT),
+                          env=env, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert "usage:" in proc.stdout
+    code = (
+        "import runpy, sys\n"
+        f"sys.argv = {['-m', *argv[1:]]!r}\n"
+        "try:\n"
+        f"    runpy.run_module({argv[0]!r}, run_name='__main__', "
+        "alter_sys=True)\n"
+        "except SystemExit as e:\n"
+        "    assert e.code in (0, None), e.code\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'kubernetes_tpu')]\n"
+        "assert not bad, bad\n"
+    )
     proc = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT),
                           env=env, capture_output=True, text=True,
                           timeout=120)
@@ -390,6 +436,11 @@ def _normalized_copy(rel: str) -> str:
                 "native/build.py of\n * this package builds it.\n")
         assert note in text
         return text.replace(note, "", 1)
+    if not (JAX_PKG / rel).read_text().startswith('"""'):
+        # a module without a docstring carries the note as its docstring
+        note = '"""' + _copy_note(rel) + '"""\n'
+        assert text.startswith(note), f"{rel}: the copy note is missing"
+        return _renamed(text[len(note):])
     if rel == "snapshot/pad.py":
         note = ("\n\n" + _copy_note(rel)[:-1] + ",\nand pad_snapshot is a "
                 "copy of kubernetes_tpu/parallel/mesh.py\n_pad_snapshot, "

@@ -390,9 +390,10 @@ class TestPodGroupAPI:
         assert "does not exist" in str(ei.value)
 
     def test_status_subresource_patch_reads_back(self):
-        """The status a director PATCHes reads back whole (the JAX test
-        reads it through kubectl get/describe, which the port does not
-        have yet: ROADMAP.md queue 1 item 4)."""
+        """The status a director PATCHes reads back whole, and through
+        the port's kubectl get/describe as in the JAX test."""
+        from kubernetes_tpu_torch.kubectl.cmd import Kubectl
+
         _, client = make_control_plane()
         rc = client.resource("podgroups", "default")
         rc.create(PodGroup(metadata=ObjectMeta(name="train"),
@@ -409,14 +410,21 @@ class TestPodGroupAPI:
         assert got.status.unschedulable == ["train-3", "train-7"]
         assert "insufficient resources" in got.status.message
         assert got.spec.min_member == 8 and got.spec.priority == 100
+        k = Kubectl(client)
+        table = k.get("podgroups")
+        assert "MIN-MEMBER" in table and "Parked" in table
+        assert "0/8" in table
+        desc = k.describe("pg", "train")
+        assert "Parked:" in desc and "insufficient resources" in desc
+        assert "train-3" in desc and "train-7" in desc
 
 
 class TestGangEndToEnd:
     def test_gang_lifecycle_with_device_daemon(self):
         """One live control plane covers: atomic gang bind, minMember parking
-        with a readable status, and priority preemption unparking a
-        high-priority gang (the JAX test's kubectl describe is left
-        out: ROADMAP.md queue 1 item 4)."""
+        with a readable status (read through kubectl describe as well),
+        and priority preemption unparking a high-priority gang."""
+        from kubernetes_tpu_torch.kubectl.cmd import Kubectl
         from kubernetes_tpu_torch.metrics import (
             scheduler_preemption_victims_total,
         )
@@ -453,6 +461,8 @@ class TestGangEndToEnd:
                 lambda: pgr.get("waiting").status.phase == "Parked", 20)
             assert "minMember 3" in pgr.get("waiting").status.message
             assert client.pods().get("waiting-0").spec.node_name == ""
+            desc = Kubectl(client).describe("podgroups", "waiting")
+            assert "Parked:" in desc and "minMember 3" in desc
             # 3) fill the cluster with low-priority pods, then a
             # priority gang preempts its way in
             filler = [f"filler-{i}" for i in range(2)]
