@@ -44,6 +44,12 @@ takes the run machinery at any length, never the device replay, and
 parks whole (no member placed, nothing folded) unless every member gets
 a node, in run_single and in host_group_replay alike.
 
+Spans (trace/spans): `wave.setup` around _wave_setup, `wave.classify`
+around the run split and classification, and `wave.pod_row` around a
+run's (or a group's) pod rows packed, shipped and unpacked on the
+device, beside models/zreplay's `wave.replay.launch` and
+`wave.replay.wait`.
+
 The snapshot's node tables stay on the device between waves, as in the
 JAX driver (_to_dev_many): a field the caller names in `keep` (the
 incremental encoder's unchanged fields), or whose host mirror shows no
@@ -134,6 +140,7 @@ from kubernetes_tpu_torch.snapshot.encode import (
 )
 from kubernetes_tpu_torch.snapshot.pad import next_pow2
 from kubernetes_tpu_torch.trace.profile import phase_timer
+from kubernetes_tpu_torch.trace.spans import span
 
 I64 = torch.int64
 
@@ -1018,8 +1025,9 @@ class WaveScheduler:
         checks all-or-nothing over the returned hosts before anything
         binds. None/[] = no gangs, and the wave is bit-identical to the
         driver without them."""
-        static, carry, num_zones, num_values = self._wave_setup(
-            snap, keep, source, last_node_index)
+        with span("wave.setup"):
+            static, carry, num_zones, num_values = self._wave_setup(
+                snap, keep, source, last_node_index)
         P = len(rep_idx)
         out = np.full(P, -1, np.int32)
         perm = np.asarray(snap.name_desc_order).astype(np.int64)
@@ -1044,11 +1052,12 @@ class WaveScheduler:
         def run_pod(rep):
             """A run's pod row on the device: the staged buffer, or packed
             and shipped now (one transfer)."""
-            ent = staged.pop(rep, None)
-            if ent is None:
-                layout, buf = pack_row(rep)
-                ent = (layout, self._packer.upload(buf))
-            return unpack(*ent)
+            with span("wave.pod_row"):
+                ent = staged.pop(rep, None)
+                if ent is None:
+                    layout, buf = pack_row(rep)
+                    ent = (layout, self._packer.upload(buf))
+                return unpack(*ent)
 
         def stage_from(j):
             """Stage the next host-path single run at or after infos[j]
@@ -1207,9 +1216,10 @@ class WaveScheduler:
         def group_pods(group):
             """A group's stacked pod rows on the device: group_buffer's
             packed buffer in one transfer, unpacked there."""
-            _G_bucket, layout, buf = group_buffer(
-                batch, [g["rep"] for g in group])
-            return unpack(layout, self._packer.upload(buf))
+            with span("wave.pod_row"):
+                _G_bucket, layout, buf = group_buffer(
+                    batch, [g["rep"] for g in group])
+                return unpack(layout, self._packer.upload(buf))
 
         def run_group_host(carry, group):
             """Pure runs: ONE grouped header probe (carrying the deferred
@@ -1296,11 +1306,13 @@ class WaveScheduler:
             gang_by_start[int(g["start"])] = g
             boundaries += [int(g["start"]),
                            int(g["start"]) + int(g["length"])]
-        runs = split_runs(rep_idx, boundaries)
-        infos = classify_runs(self.config, snap, batch, runs, num_values,
-                              self.min_run, device_zoned=self._device_zoned,
-                              zoned=zoned,
-                              gang_starts=frozenset(gang_by_start))
+        with span("wave.classify"):
+            runs = split_runs(rep_idx, boundaries)
+            infos = classify_runs(self.config, snap, batch, runs,
+                                  num_values, self.min_run,
+                                  device_zoned=self._device_zoned,
+                                  zoned=zoned,
+                                  gang_starts=frozenset(gang_by_start))
         for info in infos:
             g = gang_by_start.get(info["start"])
             if g is not None and info["length"] == g["length"] \

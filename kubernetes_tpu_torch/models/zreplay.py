@@ -22,6 +22,12 @@ Two entry points share the same probe + pick-loop body:
     horizon aborts the rest (they schedule nothing and report
     n_done == 0), and the host driver resumes from there.
 
+Spans (trace/spans): `wave.replay.launch` around a dispatch (the enqueue
+of the folds, the probe with K1, and K3; attribute k3: the pick loops it
+enqueues, one K3 launch each on the card) and `wave.replay.wait` around
+its collect, the host blocked until the device has finished and the
+picks have been copied back.
+
 Scope, as in the JAX package: runs whose only cross-node coupling is
 the zone blend. (The port rejects ServiceAffinity/ServiceAntiAffinity
 configs, so no service dynamics reach this module.)
@@ -43,6 +49,7 @@ from kubernetes_tpu_torch.models.batch import (
 )
 from kubernetes_tpu_torch.models.probe import _probe_rows
 from kubernetes_tpu_torch.ops import zreplay_kernel as ZK
+from kubernetes_tpu_torch.trace.spans import span
 
 I64 = torch.int64
 
@@ -123,11 +130,13 @@ class ZReplay:
         not None), probe + pick loop, fold this run's commits.
         -> (carry', chosen i32[K_bucket] permuted-space ids, L', n_done),
         host values after ONE device-to-host copy."""
-        carry, chosen, _counts, L, n_done = self.dispatch(
-            static, carry, prev_pod, prev_counts, pod, num_zones,
-            num_values, J, K_bucket, zone_id_perm, veto_perm, has_selectors,
-            rows, k_real, L0)
-        out = self.collect(chosen, L, n_done)
+        with span("wave.replay.launch", k3=1):
+            carry, chosen, _counts, L, n_done = self.dispatch(
+                static, carry, prev_pod, prev_counts, pod, num_zones,
+                num_values, J, K_bucket, zone_id_perm, veto_perm,
+                has_selectors, rows, k_real, L0)
+        with span("wave.replay.wait"):
+            out = self.collect(chosen, L, n_done)
         return (carry, out[:K_bucket].astype(np.int32), int(out[K_bucket]),
                 int(out[K_bucket + 1]))
 
@@ -165,11 +174,13 @@ class ZReplay:
         riding this call: None or (kind, pod(s), counts).
         -> (carry', chosen i32[G, K_bucket] permuted-space ids,
         n_done i64[G], L'), host values after ONE device-to-host copy."""
-        carry, chosen, n_done, L = self.dispatch_group(
-            static, carry, prev, pods, G, num_zones, num_values, J,
-            K_bucket, zone_id_perm, vetos_perm, has_sels, rows_arr,
-            k_reals, L0)
-        out = self.collect(chosen, n_done, L)
+        with span("wave.replay.launch", k3=G):
+            carry, chosen, n_done, L = self.dispatch_group(
+                static, carry, prev, pods, G, num_zones, num_values, J,
+                K_bucket, zone_id_perm, vetos_perm, has_sels, rows_arr,
+                k_reals, L0)
+        with span("wave.replay.wait"):
+            out = self.collect(chosen, n_done, L)
         GK = G * K_bucket
         return (carry, out[:GK].reshape(G, K_bucket).astype(np.int32),
                 out[GK:GK + G], int(out[GK + G]))

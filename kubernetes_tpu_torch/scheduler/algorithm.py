@@ -47,6 +47,12 @@ in the JAX package.
 
 It runs on CUDA unless the caller passes device="cpu"; on a host without
 CUDA the default raises instead of carrying on on the CPU.
+
+Spans (trace/spans, no-ops under KUBERNETES_TPU_TRACE=0): each call is a
+`scheduler.schedule_backlog` span (pods, reps, nodes) holding
+`encode.dedup`, `encode.nodes` (the full encoder's node tables, or the
+incremental wave view), `encode.pods`, `encode.pad` and
+`scheduler.results` (node ids to names), beside those of models/wave.py.
 """
 
 from __future__ import annotations
@@ -82,6 +88,8 @@ from kubernetes_tpu_torch.snapshot.encode import (
 from kubernetes_tpu_torch.snapshot.incremental import IncrementalEncoder
 from kubernetes_tpu_torch.snapshot.pad import next_pow2, pad_snapshot
 from kubernetes_tpu_torch.trace import profile as trace_profile
+from kubernetes_tpu_torch.trace.spans import enabled as tracing_enabled
+from kubernetes_tpu_torch.trace.spans import span
 
 log = logging.getLogger(__name__)
 
@@ -350,58 +358,76 @@ class TorchScheduleAlgorithm:
         if self._mesh_sched is not None:
             # the same lock: serializes real waves against a warmup's
             # counter save/restore
-            with self._sched_lock:
-                return self._schedule_backlog_mesh(pods, state)
-        with self._sched_lock:
-            return self._schedule_backlog_locked(pods, state, gangs)
+            with self._sched_lock, span("scheduler.schedule_backlog") as call:
+                return self._schedule_backlog_mesh(pods, state, call)
+        with self._sched_lock, span("scheduler.schedule_backlog") as call:
+            return self._schedule_backlog_locked(pods, state, gangs, call)
+
+    @staticmethod
+    def _annotate_call(call, pods, reps, snap) -> None:
+        """The call span's attributes, computed only while tracing is on
+        (call is None on a warmup's wave)."""
+        if call is not None and tracing_enabled():
+            call.annotate(pods=len(pods), reps=len(reps),
+                          nodes=snap.num_nodes)
 
     def _schedule_backlog_mesh(self, pods: Sequence[Pod],
-                               state: ClusterState) -> List[Optional[str]]:
+                               state: ClusterState,
+                               call=None) -> List[Optional[str]]:
         """The mesh path: the sharded wave driver against the resident
         sharded state. With a cache the incremental encoder supplies the
         wave's view; either way the resident state content-compares the
         snapshot against its host mirrors and ships only deltas."""
         with trace_profile.phase_timer("encode"):
-            reps, rep_idx = self._dedup(pods)
+            with span("encode.dedup"):
+                reps, rep_idx = self._dedup(pods)
             snap = batch = None
             if self._inc is not None:
-                snap, batch, _keep = self._inc.wave_view(
-                    reps, services=_listed(self._service_lister),
-                    controllers=_listed(self._controller_lister),
-                    replica_sets=_listed(self._replica_set_lister))
+                with span("encode.nodes"):
+                    snap, batch, _keep = self._inc.wave_view(
+                        reps, services=_listed(self._service_lister),
+                        controllers=_listed(self._controller_lister),
+                        replica_sets=_listed(self._replica_set_lister))
             if snap is None:
-                enc = SnapshotEncoder(state, reps,
-                                      config=self._mesh_sched.config)
-                snap = enc.encode_nodes()
-                batch = enc.encode_pods()
+                with span("encode.nodes"):
+                    enc = SnapshotEncoder(state, reps,
+                                          config=self._mesh_sched.config)
+                    snap = enc.encode_nodes()
+                with span("encode.pods"):
+                    batch = enc.encode_pods()
+            self._annotate_call(call, pods, reps, snap)
             n_real = snap.num_nodes
             if n_real == 0:
                 return [None] * len(pods)
             # bucket the node axis (pow2, floor 64), then to a mesh
             # multiple, so node ids map back to THIS snapshot's names
-            snap = pad_snapshot(snap, next_pow2(n_real, 64))
-            snap = pad_snapshot(snap, self._mesh_sched.mesh.size)
+            with span("encode.pad"):
+                snap = pad_snapshot(snap, next_pow2(n_real, 64))
+                snap = pad_snapshot(snap, self._mesh_sched.mesh.size)
         chosen, _final, last = self._mesh_sched.schedule_backlog(
             snap, batch, rep_idx, last_node_index=self._last_node_index)
         self._last_node_index = last
         names = snap.node_names
-        return [names[i] if 0 <= i < n_real else None
-                for i in (int(c) for c in chosen)]
+        with span("scheduler.results"):
+            return [names[i] if 0 <= i < n_real else None
+                    for i in (int(c) for c in chosen)]
 
     def _schedule_backlog_locked(self, pods: Sequence[Pod],
                                  state: ClusterState,
-                                 gangs: Optional[Sequence[dict]] = None
-                                 ) -> List[Optional[str]]:
+                                 gangs: Optional[Sequence[dict]] = None,
+                                 call=None) -> List[Optional[str]]:
         with trace_profile.phase_timer("encode"):
-            reps, rep_idx = self._dedup(pods)
+            with span("encode.dedup"):
+                reps, rep_idx = self._dedup(pods)
             snap = batch = None
             keep = frozenset()
             source = "full"
             if self._inc is not None:
-                snap, batch, keep = self._inc.wave_view(
-                    reps, services=_listed(self._service_lister),
-                    controllers=_listed(self._controller_lister),
-                    replica_sets=_listed(self._replica_set_lister))
+                with span("encode.nodes"):
+                    snap, batch, keep = self._inc.wave_view(
+                        reps, services=_listed(self._service_lister),
+                        controllers=_listed(self._controller_lister),
+                        replica_sets=_listed(self._replica_set_lister))
                 if snap is not None:
                     # the encoder instance, not only its kind: a warmup's
                     # throwaway encoder and the real one number their
@@ -409,10 +435,17 @@ class TorchScheduleAlgorithm:
                     source = self._inc.source_token
             if snap is None:
                 # the full encode (no cache, or a scope gate hit)
-                enc = SnapshotEncoder(state, reps, config=self._wave.config)
-                snap = enc.encode_nodes()
-                batch = enc.encode_pods()
-                if snap.num_nodes:
+                with span("encode.nodes"):
+                    enc = SnapshotEncoder(state, reps,
+                                          config=self._wave.config)
+                    snap = enc.encode_nodes()
+                with span("encode.pods"):
+                    batch = enc.encode_pods()
+            self._annotate_call(call, pods, reps, snap)
+            if source == "full" and snap.num_nodes:
+                # the full encode's node axis, bucketed (the incremental
+                # view comes bucketed)
+                with span("encode.pad"):
                     snap = pad_snapshot(snap, next_pow2(snap.num_nodes, 64))
         if snap.num_nodes == 0:
             # empty cluster: every pod fails with FitError
@@ -459,10 +492,11 @@ class TorchScheduleAlgorithm:
                 chosen, last = s_chosen, s_last
         self._last_node_index = last
         names = snap.node_names
-        return [
-            (names[i] or None) if 0 <= i < len(names) else None
-            for i in (int(c) for c in chosen)
-        ]
+        with span("scheduler.results"):
+            return [
+                (names[i] or None) if 0 <= i < len(names) else None
+                for i in (int(c) for c in chosen)
+            ]
 
     def schedule(self, pod: Pod, state: ClusterState) -> str:
         host = self.schedule_backlog([pod], state)[0]

@@ -198,6 +198,8 @@ DEVIATIONS = {
         "TorchScheduleAlgorithm",
     ("scheduler/gang.py", "GangDirector"): "VictimScorer(device=device)",
     ("trace/profile.py", "install_compile_listener"): "chip_smoke.py",
+    ("trace/spans.py", "Span"): "perf_counter_ns",
+    ("trace/spans.py", "TraceBuffer"): "whole across ring eviction",
     ("scheduler/algorithm.py", "TorchScheduleAlgorithm._warm_one"):
         "an exception propagates",
     ("scheduler/factory.py", "ConfigFactory.__init__"): "device",
