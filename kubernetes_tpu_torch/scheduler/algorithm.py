@@ -371,6 +371,15 @@ class TorchScheduleAlgorithm:
             call.annotate(pods=len(pods), reps=len(reps),
                           nodes=snap.num_nodes)
 
+    @staticmethod
+    def _annotate_nodes(nodes_span, enc, snap) -> None:
+        """The full encode's encode.nodes span attributes while tracing is
+        on: the rows encoded, and the assigned pods that took the volume
+        compiler's per-pod path."""
+        if tracing_enabled():
+            nodes_span.annotate(nodes=snap.num_nodes,
+                                volume_pods=enc.volume_pods)
+
     def _schedule_backlog_mesh(self, pods: Sequence[Pod],
                                state: ClusterState,
                                call=None) -> List[Optional[str]]:
@@ -389,10 +398,11 @@ class TorchScheduleAlgorithm:
                         controllers=_listed(self._controller_lister),
                         replica_sets=_listed(self._replica_set_lister))
             if snap is None:
-                with span("encode.nodes"):
+                with span("encode.nodes") as nodes_span:
                     enc = SnapshotEncoder(state, reps,
                                           config=self._mesh_sched.config)
                     snap = enc.encode_nodes()
+                    self._annotate_nodes(nodes_span, enc, snap)
                 with span("encode.pods"):
                     batch = enc.encode_pods()
             self._annotate_call(call, pods, reps, snap)
@@ -435,10 +445,11 @@ class TorchScheduleAlgorithm:
                     source = self._inc.source_token
             if snap is None:
                 # the full encode (no cache, or a scope gate hit)
-                with span("encode.nodes"):
+                with span("encode.nodes") as nodes_span:
                     enc = SnapshotEncoder(state, reps,
                                           config=self._wave.config)
                     snap = enc.encode_nodes()
+                    self._annotate_nodes(nodes_span, enc, snap)
                 with span("encode.pods"):
                     batch = enc.encode_pods()
             self._annotate_call(call, pods, reps, snap)

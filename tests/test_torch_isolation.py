@@ -221,6 +221,8 @@ DEVIATIONS = {
     ("analysis/compile_guard.py", "<module>"): "native/build.py",
     ("analysis/__main__.py", "<module>"): "--programs-only",
     ("analysis/__init__.py", "run_static_passes"): "include_programs",
+    ("snapshot/encode.py", "SnapshotEncoder"): "column by column",
+    ("snapshot/volumes.py", "VolumeCompiler"): "column by column",
 }
 #: the JAX counterpart of a deviation whose file or name differs there
 COUNTERPARTS = {

@@ -65,6 +65,8 @@ def test_a_call_records_its_spans_under_one_root(tracing):
     root = roots[0]
     assert root["attrs"] == {"pods": 60, "reps": 1, "nodes": 9}
     assert {r["name"] for r in recs} == CALL_SPANS | {ROOT}
+    nodes = [r for r in recs if r["name"] == "encode.nodes"]
+    assert [r["attrs"] for r in nodes] == [{"nodes": 9, "volume_pods": 0}]
     by_id = {r["span_id"]: r for r in recs}
     for r in recs:
         assert r["trace_id"] == root["trace_id"]
@@ -92,10 +94,33 @@ def test_the_mesh_call_records_its_encode_spans(tracing):
     recs, _ = zoned_call(algo)
     root = next(r for r in recs if r["name"] == ROOT)
     assert root["attrs"] == {"pods": 60, "reps": 1, "nodes": 9}
+    nodes = [r for r in recs if r["name"] == "encode.nodes"]
+    assert [r["attrs"] for r in nodes] == [{"nodes": 9, "volume_pods": 0}]
     names = {r["name"] for r in recs
              if r["parent_id"] == root["span_id"]}
     assert {"encode.dedup", "encode.nodes", "encode.pods", "encode.pad",
             "scheduler.results"} <= names
+
+
+def test_the_node_encode_span_counts_assigned_pods_with_volumes(tracing):
+    """volume_pods counts the assigned pods that carry volumes, which take
+    the volume compiler's per-pod path; the others are skipped."""
+    nodes = S.zoned_density_nodes(TT, 4, zones=("a", "b"))
+    disk = TT.Volume(name="d", gce_persistent_disk=TT.GCEPersistentDisk(
+        pd_name="pd-1", read_only=True))
+    bound = [TT.Pod(metadata=TT.ObjectMeta(name=f"b{i}"),
+                    spec=TT.PodSpec(node_name=n.metadata.name,
+                                    containers=[TT.Container()],
+                                    volumes=[disk] if i % 2 else []))
+             for i, n in enumerate(nodes * 2)]
+    state = ClusterState.build(nodes, assigned_pods=bound)
+    before = spans.BUFFER.total_recorded
+    TorchScheduleAlgorithm(device="cpu").schedule_backlog(
+        S.pause_pods(TT, 8), state)
+    recs = spans.BUFFER.since(before)
+    nodes_recs = [r for r in recs if r["name"] == "encode.nodes"]
+    assert [r["attrs"] for r in nodes_recs] == [
+        {"nodes": 4, "volume_pods": 4}]
 
 
 def test_self_and_total_seconds_add_up(tracing):
