@@ -45,10 +45,11 @@ parks whole (no member placed, nothing folded) unless every member gets
 a node, in run_single and in host_group_replay alike.
 
 Spans (trace/spans): `wave.setup` around _wave_setup, `wave.classify`
-around the run split and classification, and `wave.pod_row` around a
-run's (or a group's) pod rows packed, shipped and unpacked on the
-device, beside models/zreplay's `wave.replay.launch` and
-`wave.replay.wait`.
+around the run split and classification (attributes runs, and
+device_runs: those routed to the device replay), and `wave.pod_row`
+around a run's (or a group's) pod rows packed, shipped and unpacked on
+the device, beside models/zreplay's `wave.replay.launch`,
+`wave.replay.run` and `wave.replay.wait`.
 
 The snapshot's node tables stay on the device between waves, as in the
 JAX driver (_to_dev_many): a field the caller names in `keep` (the
@@ -1306,13 +1307,15 @@ class WaveScheduler:
             gang_by_start[int(g["start"])] = g
             boundaries += [int(g["start"]),
                            int(g["start"]) + int(g["length"])]
-        with span("wave.classify"):
+        with span("wave.classify") as sp:
             runs = split_runs(rep_idx, boundaries)
             infos = classify_runs(self.config, snap, batch, runs,
                                   num_values, self.min_run,
                                   device_zoned=self._device_zoned,
                                   zoned=zoned,
                                   gang_starts=frozenset(gang_by_start))
+            sp.annotate(runs=len(infos),
+                        device_runs=sum(i["device"] for i in infos))
         for info in infos:
             g = gang_by_start.get(info["start"])
             if g is not None and info["length"] == g["length"] \

@@ -24,9 +24,12 @@ Two entry points share the same probe + pick-loop body:
 
 Spans (trace/spans): `wave.replay.launch` around a dispatch (the enqueue
 of the folds, the probe with K1, and K3; attribute k3: the pick loops it
-enqueues, one K3 launch each on the card) and `wave.replay.wait` around
-its collect, the host blocked until the device has finished and the
-picks have been copied back.
+enqueues, one K3 launch each on the card; a group's also picks, the sum
+of its runs' real picks, and k_bucket, each loop's steps, so the loops'
+waste is k3 * k_bucket - picks), inside a group's one `wave.replay.run`
+per run around that run's enqueue (probe, K3, fold; attribute k: its
+real picks), and `wave.replay.wait` around its collect, the host blocked
+until the device has finished and the picks have been copied back.
 
 Scope, as in the JAX package: runs whose only cross-node coupling is
 the zone blend. (The port rejects ServiceAffinity/ServiceAntiAffinity
@@ -174,7 +177,8 @@ class ZReplay:
         riding this call: None or (kind, pod(s), counts).
         -> (carry', chosen i32[G, K_bucket] permuted-space ids,
         n_done i64[G], L'), host values after ONE device-to-host copy."""
-        with span("wave.replay.launch", k3=G):
+        with span("wave.replay.launch", k3=G, picks=sum(k_reals),
+                  k_bucket=K_bucket):
             carry, chosen, n_done, L = self.dispatch_group(
                 static, carry, prev, pods, G, num_zones, num_values, J,
                 K_bucket, zone_id_perm, vetos_perm, has_sels, rows_arr,
@@ -201,16 +205,18 @@ class ZReplay:
         active = torch.ones((), dtype=torch.bool, device=dev)
         chosen_rows, done_rows = [], []
         for g in range(G):
-            pod = {f: t[g] for f, t in pods.items()}
-            j, chosen, L2, n_done, bailed = _replay_run(
-                self.config, num_zones, num_values, J, K_bucket, static,
-                carry, pod, zone_id_perm, vetos_perm[g], has_sels[g],
-                rows_arr[g], k_reals[g], L, active)
-            # an aborted run committed nothing: its fold adds zeros
-            carry = self.apply_fn(static, carry, pod, _node_counts(j, perm))
-            chosen_rows.append(chosen.to(I64))
-            done_rows.append(torch.where(active, n_done, 0))
-            L = L2
-            active = active & (bailed == 0)
+            with span("wave.replay.run", k=k_reals[g]):
+                pod = {f: t[g] for f, t in pods.items()}
+                j, chosen, L2, n_done, bailed = _replay_run(
+                    self.config, num_zones, num_values, J, K_bucket, static,
+                    carry, pod, zone_id_perm, vetos_perm[g], has_sels[g],
+                    rows_arr[g], k_reals[g], L, active)
+                # an aborted run committed nothing: its fold adds zeros
+                carry = self.apply_fn(static, carry, pod,
+                                      _node_counts(j, perm))
+                chosen_rows.append(chosen.to(I64))
+                done_rows.append(torch.where(active, n_done, 0))
+                L = L2
+                active = active & (bailed == 0)
         return (carry, torch.stack(chosen_rows), torch.stack(done_rows),
                 L.view(1))

@@ -408,8 +408,12 @@ class SnapshotEncoder:
     encode_nodes builds the node axis column by column, in one pass, in
     place of ~25 numpy scalar writes and four bit packs a node;
     _build_vocabs' node visit interns a label or zone only on a miss; the
-    volumes property keeps the volume compiler's volume_pods. The same
-    arrays, dtypes and vocabulary ids."""
+    volumes property keeps the volume compiler's volume_pods;
+    encode_pods builds the Services' and RCs' selectors once a call and
+    finds each pod's spread classes through an index of the classes'
+    label pairs (_SpreadClasses), in place of building every selector
+    once a pod and testing it against every class. The same arrays,
+    dtypes and vocabulary ids."""
 
     def __init__(self, state: ClusterState, pods: Sequence[Pod], config=None,
                  vocabs: Optional[VocabBundle] = None, visit_state: bool = True,
@@ -494,6 +498,53 @@ class SnapshotEncoder:
             frozenset(pod.metadata.labels.items()),
             deleted,
         )
+
+    def _set_selectors(self) -> List[Tuple[str, frozenset]]:
+        """(namespace, frozenset of (key, value) pairs) of each Service's
+        and then each RC's selector. Such a selector
+        (labels.SelectorFromSet) matches exactly the labels that hold
+        every pair, an empty one every labels: a subset test of the pairs
+        against the labels' items."""
+        return [(o.metadata.namespace,
+                 frozenset((o.spec.selector or {}).items()))
+                for o in (*self.state.services, *self.state.controllers)]
+
+    class _SpreadClasses:
+        """The live (not deleted) spread classes of each namespace, and
+        an index from each (namespace, label pair) to the live classes
+        holding it, so that a label-set selector finds its classes from
+        its rarest pair instead of testing every class."""
+
+        def __init__(self, class_list):
+            self.class_list = class_list
+            self.by_ns: Dict[str, List[int]] = {}
+            self.by_pair: Dict[tuple, List[int]] = {}
+            for c_idx, (ns, labels_fs, deleted) in enumerate(class_list):
+                if deleted:
+                    continue
+                self.by_ns.setdefault(ns, []).append(c_idx)
+                for pair in labels_fs:
+                    self.by_pair.setdefault((ns, pair), []).append(c_idx)
+
+        def classes(self, ns: str, sets, selectors) -> List[int]:
+            """Ids of the live classes of namespace ns whose labels one of
+            the label sets (frozensets of pairs) or one of the selectors
+            matches."""
+            hit = set()
+            for s in sets:
+                if not s:
+                    return list(self.by_ns.get(ns, ()))
+                rarest = min(s, key=lambda p: len(self.by_pair.get((ns, p),
+                                                                   ())))
+                hit.update(c for c in self.by_pair.get((ns, rarest), ())
+                           if s <= self.class_list[c][1])
+            if selectors:
+                for c_idx in self.by_ns.get(ns, ()):
+                    if c_idx not in hit:
+                        lbls = dict(self.class_list[c_idx][1])
+                        if any(sel.matches(lbls) for sel in selectors):
+                            hit.add(c_idx)
+            return list(hit)
 
     def _intern_set(self, key: str, values) -> int:
         """Intern a requirement value set as a bitmask over kv ids."""
@@ -960,7 +1011,8 @@ class SnapshotEncoder:
             svc_member=self.services_program.member,
             svc_fixed=self.services_program.fixed,
         )
-        class_list = list(self.classes.ids.keys())
+        set_selectors = self._set_selectors()
+        spread = self._SpreadClasses(list(self.classes.ids.keys()))
         for i, pod in enumerate(self.pods):
             cpu, mem, gpu = pod_resource_request(pod)
             b.req_mcpu[i], b.req_mem[i], b.req_gpu[i] = cpu, mem, gpu
@@ -1060,22 +1112,14 @@ class SnapshotEncoder:
                     b.intolerable_prefer[i, tid] = 1
             b.tol_mask[i] = _pack_bits(tolerated_ids, w["TW"])
             b.best_effort[i] = is_pod_best_effort(pod)
-            # spread selectors
-            selectors = []
-            for svc in get_pod_services(self.state, pod):
-                selectors.append(labelpkg.selector_from_set(svc.spec.selector))
-            for rc in get_pod_controllers(self.state, pod):
-                selectors.append(labelpkg.selector_from_set(rc.spec.selector))
-            for rs in get_pod_replica_sets(self.state, pod):
-                selectors.append(label_selector_as_selector(rs.spec.selector))
-            b.has_selectors[i] = bool(selectors)
-            if selectors:
-                for c_idx, (ns, labels_fs, deleted) in enumerate(class_list):
-                    if deleted or ns != pod.namespace:
-                        continue
-                    lbls = dict(labels_fs)
-                    if any(s.matches(lbls) for s in selectors):
-                        b.spread_match[i, c_idx] = 1
+            # spread selectors: the Services' and RCs' label sets that
+            # the pod's labels hold, then its ReplicaSets' selectors
+            ns, items = pod.namespace, pod.metadata.labels.items()
+            sets = [s for s_ns, s in set_selectors if s_ns == ns and s <= items]
+            selectors = [label_selector_as_selector(rs.spec.selector)
+                         for rs in get_pod_replica_sets(self.state, pod)]
+            b.has_selectors[i] = bool(sets or selectors)
+            b.spread_match[i, spread.classes(ns, sets, selectors)] = 1
             b.class_id[i] = self.classes.get(self._class_key(pod))
             for c in pod.spec.containers:
                 iid = self.images.get(c.image, add=False)

@@ -1,7 +1,10 @@
 """The port's node encode, built column by column, against the JAX
 package's node-by-node encode: every ClusterSnapshot field (value, dtype
 and shape), the vocabularies' ids, and the VolumeCompiler program, over
-seeded clusters that reach each branch of the node pass.
+seeded clusters that reach each branch of the node pass. And the port's
+pod encode, whose spread selectors go through an index of the classes'
+label pairs, against the JAX package's: every PodBatch field, over
+clusters of many RCs and of every kind of spread selector.
 """
 
 import dataclasses
@@ -276,3 +279,127 @@ def test_node_encode_matches_the_jax_encoder(cluster):
     with_volumes = sum(bool(p.spec.volumes) for p in
                        pstate.all_assigned_pods())
     assert compiler.volume_pods == enc.volume_pods == with_volumes
+
+
+def _meta(name, ns="default", labels=None):
+    return J.ObjectMeta(name=name, namespace=ns, labels=dict(labels or {}))
+
+
+def many_rcs(rng):
+    """The rc-spread-500x40 cell's shape cut to 30 nodes and 24 RCs, from
+    the benchmark's generator; a pending pod of each RC and bound pods of
+    some."""
+    config = json.loads((BENCH / "configs/spread-3k-zoned.json").read_text())
+    traffic = json.loads((BENCH / "traffic/rc-spread-500x40.json").read_text())
+    config["nodes"] = 30
+    traffic["groups"][0]["copies"] = 24
+    desc = bench_traffic.describe(config, traffic, rng.randrange(2**40))
+    ns, st = desc["namespace"], desc["states"][rng.randrange(2)]
+    nodes = [_node(n["name"], n["labels"], n["allocatable"])
+             for n in st["nodes"]]
+    bound = [_pod(b["name"], b["node"], b["labels"]) for b in st["bound"]]
+    for i, g in enumerate(desc["groups"][::3]):
+        bound.append(_pod(f"{g['name']}-b", rng.choice(nodes).metadata.name,
+                          g["labels"]))
+    pending = [_pod(f"{g['name']}-0", labels=g["labels"])
+               for g in desc["groups"]]
+    for p in bound + pending:
+        p.metadata.namespace = ns
+    rcs = [J.ReplicationController(
+        metadata=_meta(c["name"], ns),
+        spec=J.ReplicationControllerSpec(selector=dict(c["selector"]),
+                                         replicas=c["replicas"]))
+        for c in desc["controllers"]]
+    return ClusterState.build(nodes, assigned_pods=bound,
+                              controllers=rcs), pending
+
+
+def spread_selectors(rng):
+    """Services, RCs and ReplicaSets in three namespaces: empty and nil
+    selectors, selectors of several pairs, of pairs no pod holds and of
+    every ReplicaSet operator; deleted and unlabelled assigned pods; in
+    "third" one RC of two pairs, and classes holding either pair alone."""
+    nodes = [_node(f"n{i:02d}", {ZONE: rng.choice("ab")}) for i in range(12)]
+    apps = [{"app": "web"}, {"app": "web", "tier": "fe"}, {"app": "db"},
+            {"tier": "fe"}, {}, {"app": "web", "tier": "be", "v": "2"}]
+    bound = []
+    for i in range(40):
+        p = _pod(f"b{i}", f"n{rng.randrange(12):02d}", rng.choice(apps))
+        p.metadata.namespace = rng.choice(["default", "other"])
+        if rng.random() < 0.2:
+            p.metadata.deletion_timestamp = "2016-01-01T00:00:00Z"
+        bound.append(p)
+    for i, labels in enumerate(apps[:4]):
+        p = _pod(f"t{i}", f"n{i:02d}", labels)
+        p.metadata.namespace = "third"
+        bound.append(p)
+    services = [J.Service(metadata=_meta("web"),
+                          spec=J.ServiceSpec(selector={"app": "web"})),
+                J.Service(metadata=_meta("all", "other"),
+                          spec=J.ServiceSpec(selector={})),
+                J.Service(metadata=_meta("none"),
+                          spec=J.ServiceSpec(selector={"app": "gone"}))]
+    rcs = [J.ReplicationController(
+               metadata=_meta("fe"),
+               spec=J.ReplicationControllerSpec(selector={"app": "web",
+                                                          "tier": "fe"})),
+           J.ReplicationController(
+               metadata=_meta("nil", "other"),
+               spec=J.ReplicationControllerSpec(selector=None)),
+           J.ReplicationController(
+               metadata=_meta("db", "other"),
+               spec=J.ReplicationControllerSpec(selector={"app": "db"})),
+           J.ReplicationController(
+               metadata=_meta("fe", "third"),
+               spec=J.ReplicationControllerSpec(selector={"app": "web",
+                                                          "tier": "fe"}))]
+    req = J.LabelSelectorRequirement
+    rss = [J.ReplicaSet(metadata=_meta("rs-in"), spec=J.ReplicaSetSpec(
+               selector=J.LabelSelector(match_expressions=(
+                   req("tier", "In", ("fe", "be")),
+                   req("v", "DoesNotExist"))))),
+           J.ReplicaSet(metadata=_meta("rs-not", "other"),
+                        spec=J.ReplicaSetSpec(selector=J.LabelSelector(
+                            match_labels={"app": "web"},
+                            match_expressions=(req("tier", "NotIn",
+                                                   ("fe",)),)))),
+           J.ReplicaSet(metadata=_meta("rs-exists"), spec=J.ReplicaSetSpec(
+               selector=J.LabelSelector(match_expressions=(
+                   req("v", "Exists"),))))]
+    pending = []
+    for i, labels in enumerate(apps * 2):
+        p = _pod(f"p{i}", labels=labels)
+        p.metadata.namespace = "default" if i < len(apps) else "other"
+        pending.append(p)
+    third = _pod("p-third", labels={"app": "web", "tier": "fe"})
+    third.metadata.namespace = "third"
+    pending.append(third)
+    return ClusterState.build(nodes, assigned_pods=bound, services=services,
+                              controllers=rcs, replica_sets=rss), pending
+
+
+#: what each cluster's reference PodBatch must reach: every pod has a
+#: selector and matches some classes but not all, or some pods have none
+#: and the "other" namespace's everything-selectors match all its classes
+POD_REACHES = {
+    "many_rcs": lambda b: b.has_selectors.all()
+    and (b.spread_match.sum(axis=1) > 0).all()
+    and not b.spread_match.all(axis=1).any(),
+    "spread_selectors": lambda b: b.has_selectors.any()
+    and not b.has_selectors.all()
+    and (b.spread_match.sum(axis=1) > 1).any(),
+}
+
+
+@pytest.mark.parametrize("cluster", (many_rcs, spread_selectors),
+                         ids=lambda f: f.__name__)
+def test_pod_encode_matches_the_jax_encoder(cluster):
+    state, pending = cluster(random.Random(2147510063))
+    ref_enc = JaxEncoder(state, pending)
+    enc = SnapshotEncoder(port_state(state), to_port(pending))
+    ref_enc.encode_nodes(), enc.encode_nodes()
+    ref, batch = ref_enc.encode_pods(), enc.encode_pods()
+    assert POD_REACHES[cluster.__name__](ref)
+    for f in dataclasses.fields(ref):
+        _assert_equal(f.name, getattr(batch, f.name), getattr(ref, f.name))
+    assert list(enc.classes.ids.items()) == list(ref_enc.classes.ids.items())

@@ -3,7 +3,8 @@ zoned pick loop K3, the victim scorer K6) against their plain versions;
 the service ops, a Policy document and the extender service's verbs
 against the same calls on the CPU; the scheduler on CUDA against the same
 call on the CPU and the port's oracle copy; a gang director cycle with
-preemption on CUDA against the same cycle on the CPU; and the daemon's
+preemption on CUDA against the same cycle on the CPU; many RCs through
+the grouped device replay with no host sync a run; and the daemon's
 scheduling core (cache, incremental encoder, resident tables,
 core.Scheduler), with and without gangs, against the same flow on the
 CPU; the daemon on the wire (the port's apiserver, informers and
@@ -179,6 +180,41 @@ def test_zoned_scheduler_on_card_matches_cpu_and_oracle(cuda_device):
     assert got == TorchScheduleAlgorithm(device="cpu", min_run=1) \
         .schedule_backlog(pods, state)
     assert got == GenericScheduler().schedule_backlog(pods, state.clone())
+
+
+def test_many_rcs_group_on_card_matches_cpu_without_a_sync(cuda_device,
+                                                          monkeypatch):
+    """48 RCs x 40 replicas on 600 zoned nodes at the default min_run:
+    every run rides one grouped device replay, whose dispatch runs under
+    sync_errors (a host sync per run would raise), and the card's
+    answers equal the CPU's."""
+    from kubernetes_tpu_torch.analysis.program_audit import sync_errors
+    from kubernetes_tpu_torch.models.zreplay import ZReplay
+
+    pods, rcs = [], []
+    for i in range(48):
+        labels = {"name": f"spread-{i}"}
+        pods += S.pause_pods(T, 40, labels=labels, prefix=f"spread-{i}")
+        rcs.append(T.ReplicationController(
+            metadata=T.ObjectMeta(name=f"spread-{i}"),
+            spec=T.ReplicationControllerSpec(selector=labels, replicas=40)))
+    state = ClusterState.build(S.zoned_density_nodes(T, 600),
+                               controllers=rcs)
+    dispatch = ZReplay.dispatch_group
+
+    def strict(*args, **kw):
+        with sync_errors():
+            return dispatch(*args, **kw)
+
+    monkeypatch.setattr(ZReplay, "dispatch_group", strict)
+    launches = ZK.LAUNCHES
+    algo = TorchScheduleAlgorithm(device=cuda_device)
+    got = algo.schedule_backlog(pods, state)
+    assert ZK.LAUNCHES == launches + 48
+    assert algo._wave.dispatches == {"zreplay_group": 1}
+    assert None not in got
+    assert got == TorchScheduleAlgorithm(device="cpu").schedule_backlog(
+        pods, state)
 
 
 def test_service_ops_on_card_match_cpu(cuda_device):
